@@ -74,6 +74,10 @@ class Rng:
 
     def __init__(self):
         self.state = U(0)
+        # Values that replace the next draws while the state still
+        # advances (the bounce-0 low-discrepancy extension,
+        # ops/bsdf.py::sample_bsdf ``override``).
+        self.queue = []
 
     def init(self, x, y, frame):
         self.state = U(U(x) + U(y) * U(1000) + U(frame) * U(100000))
@@ -83,6 +87,8 @@ class Rng:
         s = self.state
         word = U(((s >> U((s >> U(28)) + U(4))) ^ s) * U(277803737))
         word = U((word >> U(22)) ^ word)
+        if self.queue:
+            return F(self.queue.pop(0))
         return F(F(word) / F(4294967295.0))
 
     def rand_int(self, lo, hi):
@@ -92,11 +98,18 @@ class Rng:
 class Oracle:
     """Holds a SceneArrays + camera dict and traces single pixels."""
 
-    def __init__(self, scene, camera, width, height):
+    def __init__(self, scene, camera, width, height,
+                 max_bounces=MAX_BOUNCES, do_mis=DO_MIS, bounce0=None):
+        """``bounce0``: optional (3, width*height) [lobe, r1, r2] values
+        replacing the first bounce's three BSDF draws (opt-in extension)."""
         self.s = scene
         self.cam = camera
         self.width = width
         self.height = height
+        self.max_bounces = max_bounces
+        self.do_mis = do_mis
+        self.bounce0 = None if bounce0 is None else np.asarray(bounce0, F)
+        self._lane = 0
         self.rng = Rng()
         atlas = scene.atlas
         self.atlas = None if atlas is None else np.asarray(atlas, np.float32)
@@ -390,7 +403,7 @@ class Oracle:
         result = vec3()
         cur_o, cur_d = ro, rd
 
-        for bounce in range(MAX_BOUNCES):
+        for bounce in range(self.max_bounces):
             hit = self.scene_intersect(cur_o, cur_d)
             if hit is None:
                 break
@@ -402,7 +415,7 @@ class Oracle:
                 ] * att
                 break
 
-            if DO_MIS and hit["transmission"] == 0.0 and hit["is_front"]:
+            if self.do_mis and hit["transmission"] == 0.0 and hit["is_front"]:
                 ls = self.sample_light(hit["position"])
                 if ls["pdf"] > 0.0:
                     v = -normalize(cur_d)
@@ -413,7 +426,10 @@ class Oracle:
                     direct = ls["intensity"] * bsdf * mw / max(ls["pdf"], EPSILON)
                     result = result + throughput * direct
 
+            if bounce == 0 and self.bounce0 is not None:
+                self.rng.queue = list(self.bounce0[:, self._lane])
             bsdf_dir = self.sample_bsdf(hit, cur_d, hit["is_front"])
+            self.rng.queue = []
             bsdf, pdf = self.eval_bsdf(
                 hit, hit["normal"], -normalize(cur_d), bsdf_dir, hit["is_front"]
             )
@@ -438,6 +454,7 @@ class Oracle:
         Returns the pre-accumulation clamped color."""
         cam = self.cam
         self.rng.init(x, y, frame)
+        self._lane = y * self.width + x
         px = F(x) + self.rng.rand()
         py = F(y) + self.rng.rand()
         u = (px / F(self.width)) * F(2.0) - F(1.0)
@@ -479,3 +496,59 @@ class Oracle:
                 else:
                     accum[p] = c
         return accum
+
+
+PROBE_PIXELS = [(2, 2), (8, 8), (13, 4), (5, 12), (12, 12), (6, 10),
+                (3, 7), (10, 2), (14, 14), (1, 13)]
+
+
+def trace_vs_oracle(scene, scene_dev, size, max_bounces=8, do_mis=True,
+                    lds=False, frame=0):
+    """Trace a size x size frame through the XLA bounce loop
+    (ops/trace.py) and count, over PROBE_PIXELS, (a) pixels whose final
+    RNG state differs from this oracle's (razor-tie branch flips) and (b)
+    state-synced pixels whose radiance is off by more than 2e-3 (a
+    knife-edge occlusion flips radiance without consuming randomness).
+    ``lds`` feeds the same bounce-0 low-discrepancy values to both."""
+    import jax.numpy as jnp
+
+    from wgpu_path_tracing_tpu.ops import camera_rays as CAM
+    from wgpu_path_tracing_tpu.ops import trace as TRACE
+    from wgpu_path_tracing_tpu.ops.intersect import make_closest_hit
+    from wgpu_path_tracing_tpu.render.camera import Camera
+    from wgpu_path_tracing_tpu.render.pipeline import camera_device
+
+    camera = Camera(width=size, height=size, aspect=1.0)
+    cam_np = {
+        "position": camera.position, "forward": camera.forward,
+        "right": camera.right, "up": camera.up,
+        "fov": np.float32(camera.fov), "aspect": np.float32(camera.aspect),
+        "aperture": np.float32(camera.aperture),
+        "focus_distance": np.float32(camera.focus_distance),
+    }
+    cam = camera_device(camera.as_pytree(), size, size)
+    x, y = CAM.pixel_grid(size, size)
+    ro, rd, state = CAM.generate_rays(cam, x, y, jnp.int32(frame),
+                                      use_dof=True)
+    lds0 = CAM.bounce0_lds(x, y, jnp.int32(frame)) if lds else None
+    oracle = Oracle(scene, cam_np, size, size, max_bounces=max_bounces,
+                    do_mis=do_mis,
+                    bounce0=None if lds0 is None else np.asarray(lds0))
+    ch = make_closest_hit(scene_dev, "auto", 512, 4)
+    rad, st, _ = TRACE.trace(
+        scene_dev, ch, ro, rd, state, max_bounces=max_bounces,
+        do_mis=do_mis and scene.num_lights > 0, num_lights=scene.num_lights,
+        lds0=lds0,
+    )
+    rad, st = np.asarray(rad), np.asarray(st)
+    flips = off = 0
+    for (px, py) in PROBE_PIXELS:
+        lane = py * size + px
+        expected = oracle.render_pixel(px, py, frame)
+        if int(st[lane]) != int(oracle.rng.state):
+            flips += 1
+        elif not np.allclose(np.minimum(rad[lane], 2.5), expected,
+                             rtol=2e-3, atol=2e-3):
+            off += 1
+    return flips, off
+

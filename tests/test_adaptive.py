@@ -68,8 +68,7 @@ def test_adaptive_beats_uniform_on_concentrated_noise():
     # whole extra budget into the noisy region. Deterministic RNG -> a
     # fixed, reproducible comparison; measured margin ~20% (probe,
     # round 3++). Near-UNIFORM-noise scenes (the default framing) are
-    # honestly a wash for redistribution — BASELINE.md records that A/B;
-    # it is not pinned here.
+    # honestly a wash for redistribution; that is not pinned here.
     def mk():
         r = _mk(64, 64, aperture=0.25, chunk=16)
         r.camera.position = np.array([0.0, 1.0, 7.0], np.float32)

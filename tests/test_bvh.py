@@ -160,20 +160,3 @@ def test_traversal_respects_active_and_tmax():
         any_hit=True,
     )
     assert not np.any(np.asarray(t2) < 0.5)
-
-
-def test_cut_subtree_clusters_splits_oversized_leaves():
-    """A tree built with max_leaf_size > the cluster cap must still yield
-    clusters of <= max_tris triangles (oversized leaves split into chunks
-    that keep the leaf's box), covering every triangle exactly once."""
-    from wgpu_path_tracing_tpu.accel.bvh import build_bvh, cut_subtree_clusters
-    from wgpu_path_tracing_tpu.models.procedural import cornell_box
-
-    sc = cornell_box(tessellation=10)  # 3,684 triangles
-    bvh = build_bvh(sc.tri_v0, sc.tri_v1, sc.tri_v2, max_leaf_size=128)
-    clusters = cut_subtree_clusters(bvh.meta, 64)
-    los = np.array([lo for _, lo, _ in clusters])
-    cnts = np.array([c for _, _, c in clusters])
-    assert cnts.max() <= 64
-    assert los[0] == 0 and (los + cnts)[-1] == sc.num_triangles
-    assert np.all(los[1:] == (los + cnts)[:-1])  # contiguous, no overlap

@@ -3,8 +3,8 @@
 accel/cbvh/flatten.cpp must reproduce the NumPy flatten block in
 models/gltf.py::load_model and the reorder gathers in
 models/assemble.py::finalize_scene EXACTLY (same doubles, same rounding,
-no FMA contraction) — the same twin contract bvh_builder.cpp and
-wide_collapse.cpp already carry (tests/test_cbvh.py)."""
+no FMA contraction) — the same twin contract bvh_builder.cpp already
+carries (tests/test_cbvh.py)."""
 
 import numpy as np
 import pytest

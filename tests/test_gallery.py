@@ -22,7 +22,7 @@ def test_gallery_builds_and_packs():
 
 def test_gallery_default_is_production_scale():
     # The default detail must cross the dense intersector's gate so the
-    # bench/gallery render exercises the wide-BVH walk (sponza's role).
+    # bench/gallery render exercises the BVH traversal (sponza's role).
     sc = gallery_atrium()
     assert sc.num_triangles > 100_000
 

@@ -40,8 +40,8 @@ def test_reference_golden_rmse_replica():
     (docs/img/cornell_512spp.png): the source cornell.glb is stripped from
     the mirror, so models/replica.py reconstructs it (room = cornell2.glb
     parity; objects estimated visually; the textured figurine is a
-    documented stand-in). The measured 512x512/256spp TPU number lives in
-    BASELINE.md; this low-res/low-spp CPU check only guards against gross
+    documented stand-in). This low-res/low-spp CPU check only guards
+    against gross
     regressions (mirrored walls, lost objects, broken display chain) — the
     threshold is dominated by Monte-Carlo noise plus the reconstruction
     residual, NOT renderer error (parity is covered by the oracle suite).

@@ -1,5 +1,6 @@
-"""Multi-chip sharding: the sharded renderer must equal the single-chip
-renderer (rows use global RNG seeds; sample-axis frames partition exactly).
+"""Multi-device sharding: the sharded renderer must equal the
+single-device renderer (rows use global RNG seeds; sample-axis frames
+partition exactly).
 
 Buffers live in tile-coherent lane order on device (utils/tiling.py); both
 sides are converted to row-major before comparison. The 64x64 image size
@@ -13,6 +14,7 @@ import pytest
 
 from wgpu_path_tracing_tpu.models.procedural import cornell_box
 from wgpu_path_tracing_tpu.models.types import pack_device_scene
+from wgpu_path_tracing_tpu.ops.intersect import make_closest_hit
 from wgpu_path_tracing_tpu.parallel import shard as SH
 from wgpu_path_tracing_tpu.render import pipeline
 from wgpu_path_tracing_tpu.render.camera import Camera
@@ -105,67 +107,42 @@ def test_sharded_frames_per_trace(setup):
 
 
 @pytest.fixture(scope="module")
-def walk_setup():
-    """Production-kernel composition fixture: a scene past brute_max_tris
-    whose walk tables are real, rendered single-chip through the walk +
-    Pallas bounce megakernel (interpret mode on CPU). The resident and
-    paged walks are bit-identical by test (test_walk.py), so one single-chip
-    reference serves both sharded variants."""
-    scene = cornell_box(tessellation=5)  # 852 tris -> real walk tables
+def large_setup():
+    """A scene past the dense gate (852 tris): "auto" takes the
+    threaded-BVH walk, rendered single-device as the reference."""
+    scene = cornell_box(tessellation=5)
     dev = pack_device_scene(scene)
-    w = h = 32
-    cam = pipeline.camera_device(
-        Camera(width=w, height=h).as_pytree(), w, h
-    )
+    w, h = 32, 16
+    cam = pipeline.camera_device(Camera(width=w, height=h).as_pytree(), w, h)
     kwargs = dict(
-        n_frames=2,
-        width=w,
-        height=h,
-        use_dof=True,
-        rng_mode="reference",
-        max_bounces=3,
-        do_mis=True,
-        num_lights=scene.num_lights,
-        firefly_clamp=2.5,
-        intersector="walk",
-        brute_max_tris=512,
+        n_frames=4, width=w, height=h, use_dof=True, rng_mode="reference",
+        max_bounces=4, do_mis=True, num_lights=scene.num_lights,
+        firefly_clamp=2.5, intersector="auto", brute_max_tris=512,
         leaf_size=4,
-        bounce_kernel="pallas",
     )
-    accum0 = jnp.zeros((w * h, 3), jnp.float32)
+    ch = make_closest_hit(dev, "auto", 512, 4)
+    assert ch.strategy == "bvh_xla"
     ref, ref_counters = pipeline.render_chunk(
-        dev, cam, accum0, jnp.int32(0), **kwargs
-    )
+        dev, cam, jnp.zeros((w * h, 3), jnp.float32), jnp.int32(0), **kwargs)
     inv = inverse_permutation(tile_permutation(w, h))
     return dev, cam, kwargs, np.asarray(ref)[inv], np.asarray(ref_counters)
 
 
-@pytest.mark.parametrize("isect", ["walk", "walk_hbm"])
-def test_sharded_production_walk(walk_setup, isect):
-    """An n>1 mesh must compose the PRODUCTION large-scene kernels — the
-    wide-BVH block walk (resident and HBM-paged) plus the Pallas bounce
-    megakernel, all in interpret mode on the CPU mesh — and match the
-    single-chip render of the same frames. This is the multi-chip story's
-    core composition: the reference has no multi-device path at all
-    (renderer.ts:426-429), and the toy brute path composing (tests above)
-    says nothing about SMEM stacks / DMA rings under shard_map."""
-    dev, cam, kwargs, ref_rm, ref_counters = walk_setup
-    if len(jax.devices()) < 4:
+@pytest.mark.parametrize("mesh_shape", [(2, 4), (1, 4)])
+def test_sharded_large_scene_matches_single(large_setup, mesh_shape):
+    """The large-scene path (threaded-BVH walk) under shard_map equals the
+    single-device render of the same frames and seeds."""
+    dev, cam, kwargs, ref_rm, ref_counters = large_setup
+    s, r = mesh_shape
+    if s * r > len(jax.devices()):
         pytest.skip("not enough devices")
-    kwargs = dict(kwargs, intersector=isect)
-    w = h = kwargs["width"]
-    mesh = SH.make_mesh(jax.devices()[:4], sample_shards=2)
-    scene_rep = SH.replicate_scene(dev, mesh)
+    mesh = SH.make_mesh(jax.devices()[: s * r], sample_shards=s)
+    w, h = kwargs["width"], kwargs["height"]
     accum = SH.shard_accum(jnp.zeros((w * h, 3), jnp.float32), mesh)
     out, counters = SH.render_chunk_sharded(
-        scene_rep, cam, accum, jnp.int32(0), mesh=mesh, **kwargs
-    )
-    out_rm = SH.untile_image(
-        SH.gather_image(out), w, h, mesh.shape["row"]
-    )
-    # Same frames, same seeds; the walk's razor-tie winner selection is
-    # block-composition-dependent (<= 1 ulp t ties, ops/intersect.py), so
-    # the comparison is allclose, not bitwise.
+        SH.replicate_scene(dev, mesh), cam, accum, jnp.int32(0), mesh=mesh,
+        **kwargs)
+    out_rm = SH.untile_image(SH.gather_image(out), w, h, mesh.shape["row"])
     np.testing.assert_allclose(out_rm, ref_rm, rtol=1e-4, atol=1e-5)
     np.testing.assert_array_equal(np.asarray(counters), ref_counters)
 

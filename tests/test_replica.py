@@ -3,7 +3,7 @@
 The replica exists to measure RMSE against the reference's golden
 (docs/img/cornell_512spp.png) whose source scene is stripped from the
 mirror; these tests only cover that the reconstruction builds and renders
-finite — the RMSE number itself is recorded in BASELINE.md.
+finite — tools/golden_rmse.py measures the RMSE itself.
 """
 
 import os

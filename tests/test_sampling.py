@@ -207,44 +207,3 @@ def test_bounce0_lds_override():
         CAM.TRACE_BOUNCE0_LDS = saved
         jax.clear_caches()
     assert np.abs(on1 - off).max() > 0.0  # the override engaged
-
-
-def test_bounce0_lds_pallas_matches_xla():
-    """Round 4: the LDS override is plumbed into the Pallas megakernel
-    (bounce_stage_pallas lds operand) instead of forcing the XLA bounce.
-    Shared bounce_core + identical override values => identical RNG
-    draw schedules (states bit-equal) and radiance up to the known
-    ~1e-7 cross-implementation reassociation noise — the same contract
-    tests/test_pallas_bounce.py pins for the default draw chain."""
-    import jax
-
-    from wgpu_path_tracing_tpu import Renderer, RenderConfig, cornell_box
-    from wgpu_path_tracing_tpu.models.types import pack_device_scene
-    from wgpu_path_tracing_tpu.ops import camera_rays as CAM
-    from wgpu_path_tracing_tpu.ops import trace as TRACE
-    from wgpu_path_tracing_tpu.ops.intersect import make_closest_hit
-    from wgpu_path_tracing_tpu.ops.pallas_bounce import trace_pallas
-    from wgpu_path_tracing_tpu.render.pipeline import camera_device
-
-    W = H = 16
-    r = Renderer(RenderConfig(width=W, height=H, frames_per_chunk=1))
-    r.load_scene(cornell_box())
-    cam = camera_device(r.camera.as_pytree(), W, H)
-    dev = r._scene_dev
-    x, y = CAM.pixel_grid(W, H)
-    ro, rd, state = CAM.generate_rays(cam, x, y, jnp.int32(0),
-                                      use_dof=True, rng_mode="stratified")
-    lds0 = CAM.bounce0_lds(x, y, jnp.int32(0))
-    ch = make_closest_hit(dev, "brute", 512, 4)
-    rad_x, st_x, _ = TRACE.trace(dev, ch, ro, rd, state, max_bounces=8,
-                                 do_mis=True, num_lights=2, lds0=lds0)
-    rad_p, st_p, _ = trace_pallas(dev, ch, ro, rd, state, max_bounces=8,
-                                  do_mis=True, num_lights=2,
-                                  interpret=True, lds0=lds0)
-    np.testing.assert_array_equal(np.asarray(st_x), np.asarray(st_p))
-    np.testing.assert_allclose(np.asarray(rad_x), np.asarray(rad_p),
-                               rtol=1e-5, atol=1e-6)
-    # And the kernel-path override ENGAGES (differs from no-lds kernel).
-    rad_p0, _, _ = trace_pallas(dev, ch, ro, rd, state, max_bounces=8,
-                                do_mis=True, num_lights=2, interpret=True)
-    assert np.abs(np.asarray(rad_p) - np.asarray(rad_p0)).max() > 0.0

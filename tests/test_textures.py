@@ -27,7 +27,7 @@ from wgpu_path_tracing_tpu.ops.intersect import make_closest_hit
 from wgpu_path_tracing_tpu.render.camera import Camera
 from wgpu_path_tracing_tpu.render.pipeline import camera_device
 
-from tests.oracle import Oracle
+from tests.oracle import Oracle, trace_vs_oracle
 
 WIDTH = HEIGHT = 16
 
@@ -197,8 +197,7 @@ def test_slot_gating_hit_exact():
     from wgpu_path_tracing_tpu.models.types import texture_slots_used
     from wgpu_path_tracing_tpu.ops import shade as SHADE
     from wgpu_path_tracing_tpu.ops import vec
-    from wgpu_path_tracing_tpu.ops.gathers import fetch_rows
-
+    
     scene = pack_device_scene(_textured_cornell())
     slots = texture_slots_used(scene["tri_full"])
     # textured_cornell maps albedo + pbr + normal but NOT emissive — the
@@ -220,7 +219,7 @@ def test_slot_gating_hit_exact():
     def hit_fields(slots_used):
         @jax.jit
         def go():
-            row = fetch_rows(dev["tri_full"], idx)
+            row = dev["tri_full"][idx]
             h = SHADE.hit_attributes_from_cols(
                 lambda c: row[:, c], vec.from_cols(ro.T), vec.from_cols(rd.T),
                 t, found, atlas=dev["atlas"], slots_used=slots_used,
@@ -239,11 +238,9 @@ def test_slot_gating_hit_exact():
 
 def test_fat_atlas_gates():
     """pack_device_scene bakes the fat-atlas canvas (models/types.py::
-    _build_fat_atlas) for atlases with in-[0,1] uvs — ARBITRARY map
-    sets since the LCM virtual-rect generalization — and refuses only on
-    out-of-range uvs, blown LCM budgets, and small atlases whose fat form
-    misses the IN-KERNEL budgets (there the bake would split the XLA/
-    Pallas texel choice; per-slot path: keys absent)."""
+    _build_fat_atlas) for ARBITRARY map sets (LCM virtual rects) and
+    refuses only on out-of-bounds rects and blown LCM / set-count budgets
+    (per-slot path: keys absent)."""
     from wgpu_path_tracing_tpu.models.procedural import textured_cornell
 
     packed = pack_device_scene(
@@ -265,26 +262,20 @@ def test_fat_atlas_gates():
     sc_big = textured_cornell(atlas_size=256, congruent=True)
     sc_big.mat_pbr_rect[0] = [0, 0, 255, 255]
     assert "atlas_fat" not in pack_device_scene(sc_big)
-    # small atlas WITH an in-kernel-sized fat form: bakes since round 3's
-    # in-kernel fat sampler (ONE one-hot select serves all four slots)
+    # small atlases bake too, whatever their size
     assert "atlas_fat" in pack_device_scene(
         textured_cornell(atlas_size=32, congruent=True))
-    # 128^2 atlas: fat canvas (128, 64) = 8192 texels sits exactly at the
-    # FAT_VMEM_TEXELS bound (on-chip sweep: fat 145.5 vs per-slot 114.6
-    # Mrays/s) — must bake
     assert "atlas_fat" in pack_device_scene(
         textured_cornell(atlas_size=128, congruent=True))
-    # small atlas whose fat form misses the in-kernel budget: must NOT
-    # bake — the XLA path would go fat while the Pallas kernel stays
-    # per-slot, splitting texel choice (and thus RNG streams)
-    import wgpu_path_tracing_tpu.ops.pallas_bounce as PB
-    saved = PB.FAT_VMEM_TEXELS
+    # more distinct map sets than FAT_ATLAS_MAX_SETS: per-slot fallback
+    import wgpu_path_tracing_tpu.models.types as MT
+    saved = MT.FAT_ATLAS_MAX_SETS
     try:
-        PB.FAT_VMEM_TEXELS = 0
+        MT.FAT_ATLAS_MAX_SETS = 0
         assert "atlas_fat" not in pack_device_scene(
             textured_cornell(atlas_size=32, congruent=True))
     finally:
-        PB.FAT_VMEM_TEXELS = saved
+        MT.FAT_ATLAS_MAX_SETS = saved
     # NEGATIVE uvs bake since round 5: the set's grid doubles on the
     # negative axis and the backward band carries the texels the
     # sign-preserving %-wrap actually reads (neighboring rects/clamps) —
@@ -316,8 +307,7 @@ def _assert_fat_matches_per_slot(packed, seed=7, tile=0, neg=False):
     (integer + pow2-denominator fraction subtracts exactly in f32), so
     tiled uvs must hit the identical texels."""
     from wgpu_path_tracing_tpu.ops import shade as SHADE
-    from wgpu_path_tracing_tpu.ops.gathers import fetch_rows
-
+    
     assert "atlas_fat" in packed
     dev = jax.device_put(packed)
     n = 256
@@ -338,7 +328,7 @@ def _assert_fat_matches_per_slot(packed, seed=7, tile=0, neg=False):
 
     @jax.jit
     def go():
-        row = fetch_rows(dev["tri_full"], idx)
+        row = dev["tri_full"][idx]
         get = lambda c: row[:, c]
         quads_fat = SHADE.sample_atlas_fat(
             dev["atlas_fat"], dev["atlas_fat_rects"], get, uu, vv)
@@ -412,8 +402,7 @@ def test_fat_atlas_negative_uv_one_axis():
     rng = np.random.default_rng(23)
     # negative offsets on u only (v must stay in the baked [0,1) band)
     from wgpu_path_tracing_tpu.ops import shade as SHADE
-    from wgpu_path_tracing_tpu.ops.gathers import fetch_rows
-
+    
     dev = jax.device_put(packed)
     n = 256
     nt = packed["tri_full"].shape[0]
@@ -426,7 +415,7 @@ def test_fat_atlas_negative_uv_one_axis():
 
     @jax.jit
     def go():
-        row = fetch_rows(dev["tri_full"], idx)
+        row = dev["tri_full"][idx]
         get = lambda c: row[:, c]
         quads_fat = SHADE.sample_atlas_fat(
             dev["atlas_fat"], dev["atlas_fat_rects"], get, uu, vv)
@@ -473,17 +462,12 @@ def test_fat_atlas_larger_later_slot():
                          ["congruent", "mixedres", "nondivisible",
                           "neguv"])
 def test_fat_atlas_trace_parity(variant):
-    """Full-trace parity on the fat path: the XLA trace and the Pallas
-    external bounce must agree exactly on RNG streams and to FMA ulps on
-    radiance (both consume shade.sample_atlas_fat, so texel choice is
-    identical by construction) — on congruent, mixed-resolution,
-    non-divisible (LCM virtual grid), AND negative-uv (round-5 backward
-    band) map sets."""
+    """Full-trace parity on the fat path against the scalar oracle (which
+    samples the atlas per slot): RNG streams equal on every probe pixel,
+    radiance to f32 reassociation — on congruent, mixed-resolution,
+    non-divisible (LCM virtual grid) and negative-uv (backward band) map
+    sets."""
     from wgpu_path_tracing_tpu.models.procedural import textured_cornell
-    from wgpu_path_tracing_tpu.ops.pallas_bounce import (
-        prepare_tables,
-        trace_pallas,
-    )
 
     sc = textured_cornell(
         atlas_size=256,
@@ -497,25 +481,8 @@ def test_fat_atlas_trace_parity(variant):
         sc.tri_uv0[:] = np.asarray(sc.tri_uv0) - 1.0
     scene = jax.device_put(pack_device_scene(sc))
     assert "atlas_fat" in scene
-    tables = prepare_tables(scene)
-    assert tables is not None and tables[3][2] == "ext"
-    cam = camera_device(Camera(width=WIDTH, height=HEIGHT).as_pytree(),
-                        WIDTH, HEIGHT)
-    x, y = CAM.pixel_grid(WIDTH, HEIGHT)
-    ro, rd, state = CAM.generate_rays(cam, x, y, jnp.int32(0), use_dof=True)
-    ch = make_closest_hit(scene, "brute", 4096, 4)
-    rad_x, st_x, _ = TRACE.trace(
-        scene, ch, ro, rd, state,
-        max_bounces=4, do_mis=True, num_lights=sc.num_lights,
-    )
-    rad_p, st_p, _ = trace_pallas(
-        scene, ch, ro, rd, state,
-        max_bounces=4, do_mis=True, num_lights=sc.num_lights, interpret=True,
-    )
-    np.testing.assert_array_equal(np.asarray(st_x), np.asarray(st_p))
-    np.testing.assert_allclose(
-        np.asarray(rad_x), np.asarray(rad_p), rtol=1e-5, atol=1e-6
-    )
+    flips, off = trace_vs_oracle(sc, scene, WIDTH, max_bounces=4)
+    assert flips <= 1 and off <= 1, (flips, off)
 
 
 def test_fat_atlas_overlapping_atlas_rects_ok():
@@ -546,9 +513,8 @@ def test_pull_counters_empty():
 def test_pack_asserts_bf16_exact_atlas():
     """pack_device_scene fails LOUDLY on an atlas that bypassed the
     finalize_scene quantization choke point (models/assemble.py::
-    quantize_atlas) — a raw-f32 atlas would otherwise be silently
-    bf16-truncated per fetch on hardware only (round-4 exactness
-    invariant)."""
+    quantize_atlas) — a raw-f32 atlas would render differently from a
+    finalized one."""
     import pytest
 
     from wgpu_path_tracing_tpu.models.procedural import textured_cornell

@@ -8,7 +8,7 @@ denoised. ``--scene lights`` renders the lights.glb stand-in instead
 (the reference's punctual-light demo is stripped from the mirror,
 .MISSING_LARGE_BLOBS:1): material_test_box — every BSDF lobe (diffuse,
 GGX metal, glass transmission) under every light type (emissive area,
-point, directional) plus a spot (extension type 3). Run on the TPU."""
+point, directional) plus a spot (extension type 3). Run on the GPU."""
 
 from __future__ import annotations
 
@@ -29,12 +29,6 @@ def main() -> int:
         os.path.dirname(__file__), "..", "docs", "gallery"))
     args = ap.parse_args()
 
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                          "/tmp/jax_compile_cache")
-    import jax
-
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ["JAX_COMPILATION_CACHE_DIR"])
     import numpy as np
 
     from wgpu_path_tracing_tpu import Renderer, RenderConfig

@@ -9,7 +9,7 @@ Every evaluation keeps IDENTICAL array shapes so the jitted pipeline
 compiles once: the scene is padded to a fixed triangle count
 (``pad_to=8192``), the intersector is forced to the dense brute kernel
 (only ``tri_isect`` feeds it), and the geometry-shaped acceleration tables
-(BVH / cluster / pairs / walk — unused under "brute") are replaced by
+(BVH tables — unused under "brute") are replaced by
 fixed dummy arrays. The RNG is deterministic per frame index, so RMSE
 comparisons between candidates are noise-consistent.
 
@@ -33,7 +33,9 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_compile_cache")
+from wgpu_path_tracing_tpu.utils.cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -66,13 +68,6 @@ _DUMMY_TABLES = {
     "bvh_aabb": np.zeros((1, 6), np.float32),
     "bvh_meta": np.zeros((1, 4), np.int32),
     "bvh_links": np.full((1, 2), -1, np.int32),
-    "cluster_tris": np.zeros((1, 16), np.float32),
-    "cluster_aabb": np.zeros((1, 8), np.float32),
-    "pairs_tris": np.zeros((1, 16), np.float32),
-    "pairs_super_aabb": np.zeros((8, 8), np.float32),
-    "walk_order": np.zeros((1, 64), np.int32),
-    "walk_boxes": np.zeros((64, 8), np.float32),
-    "walk_tris": np.zeros((32, 128), np.float32),
 }
 
 # (param, initial step); geometry in world units, colors in linear sRGB.

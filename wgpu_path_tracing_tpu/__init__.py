@@ -1,21 +1,21 @@
-"""wgpu_path_tracing_tpu — a TPU-native physically-based path-tracing framework.
+"""wgpu_path_tracing_tpu — a physically-based path-tracing framework in JAX.
 
 A from-scratch rebuild of the capabilities of the WebGPU renderer
-``re-ovo/wgpu-path-tracing`` (reference mounted at /root/reference), designed
-TPU-first in JAX/XLA/Pallas rather than translated:
+``re-ovo/wgpu-path-tracing``, designed in JAX/XLA/Pallas rather than
+translated; it runs on an NVIDIA GPU (and on the CPU for tests):
 
 * the reference's per-pixel WGSL megakernel (``src/shader/pt.wgsl``) becomes a
   **wavefront tracer over SoA ray batches** — every pixel's ray advances
   through a ``lax.scan`` bounce loop with masked lanes,
-* BVH traversal (``pt.wgsl:248-296``) becomes a batched fixed-stack
-  ``lax.while_loop`` (plus a dense all-rays x all-triangles path that is
-  faster on the VPU for small scenes),
+* BVH traversal (``pt.wgsl:248-296``) becomes a per-ray threaded-BVH walk
+  (a Pallas kernel on the GPU, a batched ``lax.while_loop`` elsewhere),
+  plus a dense all-rays x all-triangles path for small scenes,
 * the RNG (``src/shader/random.wgsl``) is threaded functionally with masked
   state advancement so per-pixel streams can bit-match the reference,
 * scene ingestion (``src/renderer/{gpu,loader,atlas}.ts``) is NumPy host
   preprocessing, BVH building (``src/renderer/bvh.ts``) is NumPy with an
   optional C++ fast path, and
-* multi-chip scaling uses ``jax.sharding.Mesh`` + ``shard_map`` row/sample
+* multi-device scaling uses ``jax.sharding.Mesh`` + ``shard_map`` row/sample
   sharding instead of any host-loop parallelism.
 
 Public API mirrors the reference renderer's surface (``renderer.ts:18-134``):

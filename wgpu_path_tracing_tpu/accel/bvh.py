@@ -79,7 +79,7 @@ def build_links(meta: np.ndarray) -> np.ndarray:
     The thread order is left-first depth-first — exactly the visit order of
     the reference's explicit stack (pt.wgsl:281-287 pushes right then left,
     so left pops first), so closest-hit tie-breaking is identical while the
-    TPU traversal needs no per-ray stack (and so no scatters).
+    traversal needs no per-ray stack. Each node is visited at most once.
     """
     b = meta.shape[0]
     hit = np.full(b, -1, np.int32)
@@ -220,54 +220,3 @@ def build_bvh(
         meta=np.asarray(node_meta, np.int32),
         order=order,
     )
-
-
-def subtree_ranges(meta: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """Per-node triangle range [lo, hi) covered by each subtree.
-
-    Triangles are stored in DFS order (the builder reorders them in place,
-    bvh.ts:53-157), so every subtree covers a contiguous range. Children are
-    always appended after their parent, so a reverse index sweep sees
-    children before parents.
-    """
-    b = meta.shape[0]
-    lo = np.zeros(b, np.int64)
-    hi = np.zeros(b, np.int64)
-    leaf = meta[:, 3] > 0
-    lo[leaf] = meta[leaf, 2]
-    hi[leaf] = meta[leaf, 2] + meta[leaf, 3]
-    for i in range(b - 1, -1, -1):
-        if not leaf[i] and meta[i, 0] >= 0:
-            l, r = meta[i, 0], meta[i, 1]
-            lo[i] = min(lo[l], lo[r])
-            hi[i] = max(hi[l], hi[r])
-    return lo, hi
-
-
-def cut_subtree_clusters(meta: np.ndarray, max_tris: int) -> list[tuple[int, int, int]]:
-    """Cut the tree into maximal subtrees holding <= max_tris triangles.
-
-    Returns [(node, lo, count)] in ascending-triangle (DFS) order. Unlike a
-    fixed-stride cut of the sorted triangle array, each cluster inherits its
-    subtree's tight SAH box — fixed-stride cuts that straddle subtree
-    boundaries produce fat boxes spanning unrelated geometry (measured: half
-    of the stride-64 clusters on the tessellated Cornell had an extent over
-    a quarter of the scene, tripling per-ray candidate counts).
-    """
-    lo, hi = subtree_ranges(meta)
-    out: list[tuple[int, int, int]] = []
-    stack = [0]
-    while stack:
-        n = stack.pop()
-        cnt = int(hi[n] - lo[n])
-        if cnt <= max_tris or meta[n, 3] > 0:
-            # A single LEAF can exceed max_tris when the tree was built with
-            # max_leaf_size > max_tris; emit it as consecutive max_tris-sized
-            # chunks (each keeps the leaf's box — conservative but valid).
-            for base in range(int(lo[n]), int(hi[n]), max_tris):
-                out.append((n, base, min(max_tris, int(hi[n]) - base)))
-            continue
-        # left first (ascending triangle ranges): push right, pop left.
-        stack.append(int(meta[n, 1]))
-        stack.append(int(meta[n, 0]))
-    return out

@@ -1,12 +1,12 @@
 """ctypes bridge to the native C++ scene-prep kernels (accel/cbvh/).
 
 The reference's host preprocessing is TypeScript; here the hot host paths
-(SAH BVH over 100k+ triangle scenes, bvh_builder.cpp; the wide-BVH walk
-table collapse, wide_collapse.cpp) have native implementations, compiled
-lazily with g++ into one cached shared object. Falls back to the NumPy
-builders (accel/bvh.py, accel/bvh8.py) when no toolchain is available;
-outputs are bit-identical by construction (tests/test_cbvh.py and
-tests/test_walk.py enforce it).
+(SAH BVH over 100k+ triangle scenes, bvh_builder.cpp; glTF flattening,
+flatten.cpp; atlas packing, potpack.cpp) have native implementations,
+compiled lazily with g++ into one cached shared object. Falls back to the
+NumPy code (accel/bvh.py, models/) when no toolchain is available; outputs
+are bit-identical by construction (tests/test_cbvh.py,
+tests/test_flatten_native.py and tests/test_potpack_native.py enforce it).
 """
 
 from __future__ import annotations
@@ -23,7 +23,6 @@ from wgpu_path_tracing_tpu.accel.bvh import BVH, build_bvh as build_bvh_numpy
 
 _SRCS = [
     os.path.join(os.path.dirname(__file__), "cbvh", "bvh_builder.cpp"),
-    os.path.join(os.path.dirname(__file__), "cbvh", "wide_collapse.cpp"),
     os.path.join(os.path.dirname(__file__), "cbvh", "flatten.cpp"),
     os.path.join(os.path.dirname(__file__), "cbvh", "potpack.cpp"),
 ]
@@ -38,7 +37,7 @@ _I64P = ctypes.POINTER(ctypes.c_int64)
 
 def _compile_library() -> ctypes.CDLL | None:
     cache_dir = os.environ.get(
-        "WPT_TPU_NATIVE_CACHE", os.path.join(tempfile.gettempdir(), "wpt_tpu_native")
+        "WPT_NATIVE_CACHE", os.path.join(tempfile.gettempdir(), "wpt_native")
     )
     os.makedirs(cache_dir, exist_ok=True)
     so_path = os.path.join(cache_dir, "libwptbvh.so")
@@ -79,11 +78,6 @@ def _bind_symbols(lib: ctypes.CDLL) -> None:
         ctypes.c_int32,
         _F32P, _F32P, _I32P, _I64P,
     ]
-    lib.wpt_wide_counts.restype = ctypes.c_int64
-    lib.wpt_wide_counts.argtypes = [
-        _I32P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
-        ctypes.c_int32, _I64P, _I64P,
-    ]
     lib.wpt_flatten.restype = ctypes.c_int64
     lib.wpt_flatten.argtypes = [
         _F32P, _F32P, ctypes.c_int64, ctypes.POINTER(ctypes.c_double),
@@ -103,13 +97,6 @@ def _bind_symbols(lib: ctypes.CDLL) -> None:
     lib.wpt_potpack.argtypes = [
         ctypes.POINTER(ctypes.c_double), ctypes.c_int64,
         ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double),
-    ]
-    lib.wpt_build_wide.restype = ctypes.c_int64
-    lib.wpt_build_wide.argtypes = [
-        _F32P, _F32P, _I32P, ctypes.c_int64, _F32P, ctypes.c_int64,
-        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-        ctypes.c_int32, _I32P, _I32P, _F32P, _F32P, ctypes.c_int64,
-        ctypes.c_int64,
     ]
 
 
@@ -176,75 +163,6 @@ def build_bvh(v0, v1, v2, max_leaf_size: int = 4, num_bins: int = 12) -> BVH:
     if np.asarray(v0).shape[0] >= 1 and native_available():
         return build_bvh_native(v0, v1, v2, max_leaf_size, num_bins)
     return build_bvh_numpy(v0, v1, v2, max_leaf_size, num_bins)
-
-
-def build_wide_native(
-    aabb_min: np.ndarray,
-    aabb_max: np.ndarray,
-    meta: np.ndarray,
-    tri_isect: np.ndarray,
-    leaf_slots: int,
-    sub: int,
-    grows: int,
-    pack: str = "none",
-):
-    """Native wide-BVH collapse (accel/cbvh/wide_collapse.cpp); returns
-    (meta, order, boxes, tris) arrays bit-identical to the NumPy collapse
-    (accel/bvh8.py) for the same ``pack`` mode ("none" or "ffd" — "slice"
-    is NumPy-only). Raises RuntimeError if the library is unavailable or
-    the native build disagrees with its own count pass."""
-    if not native_available():
-        raise RuntimeError("native wide collapse unavailable (g++ failed?)")
-    pack_codes = {"none": 0, "ffd": 1}
-    if pack not in pack_codes:
-        raise ValueError(f"native collapse does not implement pack={pack!r}")
-    pack_i = pack_codes[pack]
-    t = int(tri_isect.shape[0])
-    b = int(meta.shape[0])
-    assert t > 0 and b > 0
-
-    meta_c = np.ascontiguousarray(meta, np.int32)
-    amin_c = np.ascontiguousarray(aabb_min, np.float32)
-    amax_c = np.ascontiguousarray(aabb_max, np.float32)
-    tri_c = np.ascontiguousarray(tri_isect, np.float32)
-
-    nn = ctypes.c_int64()
-    ng = ctypes.c_int64()
-    rc = _LIB.wpt_wide_counts(
-        meta_c.ctypes.data_as(_I32P), b, t, leaf_slots, pack_i,
-        ctypes.byref(nn), ctypes.byref(ng),
-    )
-    if rc != 0:
-        raise RuntimeError(f"native wide count failed (rc={rc})")
-    nn, ng = nn.value, ng.value
-
-    lanes = max(leaf_slots, 128)
-    wmeta = np.empty((nn, 8), np.int32)
-    worder = np.empty((nn, 64), np.int32)
-    wboxes = np.empty((nn * 64, 8), np.float32)
-    wtris = np.empty((ng * grows, lanes), np.float32)
-    rc = _LIB.wpt_build_wide(
-        amin_c.ctypes.data_as(_F32P),
-        amax_c.ctypes.data_as(_F32P),
-        meta_c.ctypes.data_as(_I32P),
-        b,
-        tri_c.ctypes.data_as(_F32P),
-        t,
-        leaf_slots,
-        sub,
-        grows,
-        lanes,
-        pack_i,
-        wmeta.ctypes.data_as(_I32P),
-        worder.ctypes.data_as(_I32P),
-        wboxes.ctypes.data_as(_F32P),
-        wtris.ctypes.data_as(_F32P),
-        nn,
-        ng,
-    )
-    if rc != 0:
-        raise RuntimeError(f"native wide collapse failed (rc={rc})")
-    return wmeta, worder, wboxes, wtris
 
 
 def potpack_native(wh: np.ndarray) -> tuple[np.ndarray, float, float]:

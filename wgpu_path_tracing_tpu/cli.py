@@ -1,8 +1,8 @@
 """Command-line interface.
 
 The reference's entry points are browser interactions (drag-drop a .glb,
-fly camera, live tweakpane stats — App.tsx:12-34, controller.ts); headless
-on TPU the equivalents are subcommands:
+fly camera, live tweakpane stats — App.tsx:12-34, controller.ts); headless,
+the equivalents are subcommands:
 
     python -m wgpu_path_tracing_tpu.cli render scene.glb --spp 512 \\
         --width 512 --height 512 -o out.png
@@ -22,6 +22,11 @@ import json
 import math
 import sys
 import time
+
+from wgpu_path_tracing_tpu.ops.intersect import INTERSECTORS
+from wgpu_path_tracing_tpu.utils.cache import enable_compile_cache
+
+enable_compile_cache()
 
 
 def _add_camera_args(p: argparse.ArgumentParser) -> None:
@@ -304,14 +309,11 @@ def main(argv=None) -> int:
                     help="samples per jit dispatch")
     pr.add_argument("--frames-per-trace", type=int, default=1,
                     dest="frames_per_trace",
-                    help="samples batched into one trace call (denser "
-                         "ray blocks for large scenes; see RenderConfig)")
+                    help="samples batched into one trace call (see "
+                         "RenderConfig)")
     pr.add_argument("--mode", choices=("pt", "normal", "bvh_depth"), default="pt")
     pr.add_argument("--rng", choices=("reference", "hash", "stratified"), default="reference")
-    pr.add_argument("--intersector",
-                    choices=("auto", "brute", "bvh", "cluster", "stack",
-                             "walk", "walk_hbm", "pairs", "phased"),
-                    default="auto")
+    pr.add_argument("--intersector", choices=INTERSECTORS, default="auto")
     pr.add_argument("--preview", nargs="?", const="", default=None,
                     metavar="PATH",
                     help="write the tonemapped PNG after every chunk "
@@ -366,10 +368,7 @@ def main(argv=None) -> int:
     pv.add_argument("--env-map", default=None, metavar="PATH")
     pv.add_argument("--env-intensity", type=float, default=1.0)
     pv.add_argument("--env-rotation", type=float, default=0.0)
-    pv.add_argument("--intersector",
-                    choices=("auto", "brute", "bvh", "cluster", "stack",
-                             "walk", "walk_hbm", "pairs", "phased"),
-                    default="auto")
+    pv.add_argument("--intersector", choices=INTERSECTORS, default="auto")
     pv.add_argument("--spot-lights", action="store_true",
                     help="render KHR spot lights (extension; the reference "
                          "warns-and-skips them, gpu.ts:234-236)")

@@ -25,15 +25,11 @@ def quantize_atlas(atlas: np.ndarray) -> np.ndarray:
     """Quantize atlas texels to bf16-EXACT f32 values — the one invariant
     every atlas attachment point must establish (finalize_scene does it;
     scenes that attach an atlas afterward, e.g. models/procedural.py,
-    call this directly; pack_device_scene asserts it). It lets the Pallas
-    bounce kernel's in-atlas one-hot row selects ride ONE
-    default-precision MXU dot losslessly (bf16 of a bf16-representable
-    f32 is exact) instead of the 3-term exact split geometry tables need
-    (ops/pallas_bounce.py::_select_rows, round-4 hardware-exactness fix).
-    Every consumer — the scalar oracle (tests/oracle.py reads
-    SceneArrays.atlas), the XLA sampler, the in-kernel samplers, the
-    fat-canvas bake and the external HBM gather — sees the SAME quantized
-    values, so all bit-parity contracts hold. Quality cost: texels are
+    call this directly; pack_device_scene asserts it). The golden images
+    pin these texel values. Every consumer — the scalar oracle
+    (tests/oracle.py reads SceneArrays.atlas), the per-slot sampler and
+    the fat-canvas bake — sees the SAME quantized values, so all
+    bit-parity contracts hold. Quality cost: texels are
     8-bit sourced (PNG/JPEG/procedural u8-class), so bf16's 8
     significant bits lose <=0.4% relative — below the source
     quantization noise."""

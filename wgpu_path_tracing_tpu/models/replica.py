@@ -14,7 +14,7 @@ rebuilds the scene from two anchors:
   chrome sphere, magenta Suzanne (borrowed from the surviving monkey.glb),
   and a textured wooden figurine that CANNOT be reproduced (its texture is
   gone with the blob) — the figurine region dominates the residual RMSE
-  reported in BASELINE.md.
+  (tools/golden_rmse.py measures it).
 
 Because object placement is estimated, RMSE vs the golden measures scene
 reconstruction quality, not renderer correctness (that is covered by the

@@ -217,8 +217,7 @@ def texture_slots_used(tri_full) -> tuple[bool, bool, bool, bool]:
     zero-width rect samples its fallback exactly (pt.wgsl:112-120 via the
     ``missing`` guard in ops/shade.py), so statically skipping the fetch
     for a scene-wide-unused slot is exact at the Hit level — it just saves
-    the one-hot select + column sweep in the Pallas bounce (and the gather
-    in the XLA path). (Full-trace radiance can still move by ulps: fewer
+    the texel gather. (Full-trace radiance can still move by ulps: fewer
     ops shift XLA fusion/FMA placement, the documented RR-flip class —
     tests/test_textures.py checks the contract where it is exact.) Must be
     called on the HOST-side packed table (NumPy), not a tracer."""
@@ -236,10 +235,9 @@ def texture_slots_used(tri_full) -> tuple[bool, bool, bool, bool]:
 
 
 # Fat-atlas canvas budget: sum of packed LCM grids, in texels (one texel
-# = 16 f32 = 64 B, so 4M texels = 256 MB HBM — generous next to the walk
-# tables, tiny next to v5e's 16 GB). Map sets with wildly coprime slot
-# dims (e.g. 255 vs 256 -> 65280-wide LCM grid) blow this and fall back
-# to the per-slot gathers.
+# = 16 f32 = 64 B, so 4M texels = 256 MB of device memory). Map sets with
+# wildly coprime slot dims (e.g. 255 vs 256 -> 65280-wide LCM grid) blow
+# this and fall back to the per-slot gathers.
 FAT_ATLAS_MAX_TEXELS = 4 << 20
 # Runtime map-set match bound: shade.sample_atlas_fat resolves each
 # lane's virtual rect by comparing its 16 rect values against every
@@ -252,15 +250,13 @@ FAT_ATLAS_MAX_SETS = 256
 def _build_fat_atlas(scene: "SceneArrays", atlas: np.ndarray):
     """Pre-bake the fat-atlas canvas for big-atlas scenes.
 
-    The per-row native gather is latency-bound on TPU (~8-11 ns per
-    fetched row regardless of row width, measured round 3), so the four
-    per-slot texel fetches of the external atlas path cost ~4x one. This
-    bake gives every distinct material MAP SET (its 4-slot rect tuple) a
-    VIRTUAL rect on a standalone canvas whose grid is the componentwise
-    LCM of the mapped slots' dims, each texel row carrying all four
-    slots' texels at the same uv — so the external bounce gather
-    (ops/pallas_bounce.py::_gather_texels) and the XLA trace path fetch
-    ONE row per lane instead of four. Unmapped slots hold the slot
+    A row gather costs about the same whatever the row width, so the four
+    per-slot texel fetches cost about four times one. This bake gives
+    every distinct material MAP SET (its 4-slot rect tuple) a VIRTUAL
+    rect on a standalone canvas whose grid is the componentwise LCM of the
+    mapped slots' dims, each texel row carrying all four slots' texels at
+    the same uv — so the trace path fetches ONE row per lane instead of
+    four. Unmapped slots hold the slot
     fallback constant (shade.SLOT_FALLBACKS, imported lazily — ops.shade
     imports this module at top level).
 
@@ -277,20 +273,10 @@ def _build_fat_atlas(scene: "SceneArrays", atlas: np.ndarray):
     Returns (canvas (FH, FW, 16) f32, rects (S, 20) f32) — rects rows are
     [16 atlas-rect values in SLOT_RECT_COLS order | fx, fy, lw, lh], the
     runtime match table shade.sample_atlas_fat folds over — or None (fat
-    mode disabled, per-slot sampling used) unless ALL of:
-      * all rects in-bounds, and canvas/set-count budgets respected,
-      * for SMALL atlases (within the in-VMEM bounce sampler bound) the
-        fat canvas and set count must also fit the IN-KERNEL fat sampler
-        (ops/pallas_bounce.py FAT_VMEM_TEXELS / FAT_KERNEL_MAX_SETS) —
-        otherwise bake nothing, so the XLA and Pallas paths both stay
-        per-slot and keep choosing bit-identical texels (radiance feeds
-        Russian roulette, so a texel-choice divergence would split the
-        RNG streams the parity tests pin).
+    mode disabled, per-slot sampling used) unless all rects are in-bounds
+    and the canvas/set-count budgets are respected.
     Texel choice matches the per-slot path except the documented
-    texel-boundary ulp class (see shade.sample_atlas_fat). Small-atlas
-    scenes gained the bake in round 3: the bounce ablation measured the
-    per-slot in-kernel samplers at ~27% of the kernel EACH (linear in
-    calls), and the fat table collapses them into ONE one-hot select.
+    texel-boundary ulp class (see shade.sample_atlas_fat).
 
     NEGATIVE uvs (round 5) no longer disable the bake: the reference's
     sign-preserving %-wrap (pt.wgsl:115-116) reduces every uv to
@@ -367,20 +353,6 @@ def _build_fat_atlas(scene: "SceneArrays", atlas: np.ndarray):
     fw, fh = potpack(boxes)
     if fw * fh > FAT_ATLAS_MAX_TEXELS:
         return None
-    from wgpu_path_tracing_tpu.ops.pallas_bounce import (
-        FAT_KERNEL_MAX_SETS,
-        FAT_VMEM_TEXELS,
-        UNTILED_ATLAS_TEXELS,
-    )
-
-    if h * w <= UNTILED_ATLAS_TEXELS and (
-        fw * fh > FAT_VMEM_TEXELS or len(sets) > FAT_KERNEL_MAX_SETS
-    ):
-        # Small atlas whose fat form cannot ride the in-kernel sampler:
-        # without the bake both paths stay per-slot (and bit-consistent);
-        # with it the XLA path would go fat while the Pallas kernel stays
-        # per-slot — a texel-choice split the parity suite forbids.
-        return None
     from wgpu_path_tracing_tpu.ops.shade import SLOT_FALLBACKS
 
     fat = np.empty((fh, fw, 16), np.float32)
@@ -414,7 +386,7 @@ def _build_fat_atlas(scene: "SceneArrays", atlas: np.ndarray):
     return fat, rect_rows
 
 
-def pack_device_scene(scene: SceneArrays, cluster_k: int = 64):
+def pack_device_scene(scene: SceneArrays):
     """Build the packed device tables (as NumPy; caller moves them to jnp).
 
     Returns a dict pytree: tri_isect, tri_shade, materials, lights, bvh_aabb,
@@ -506,49 +478,10 @@ def pack_device_scene(scene: SceneArrays, cluster_k: int = 64):
             light_full[:n_lights][spot, LF_SPOT_SCALE] = aux[spot, 3]
             light_full[:n_lights][spot, LF_SPOT_OFFSET] = aux[spot, 4]
 
-    # Cluster tables for the large-scene dispatch intersectors: ops/pairs.py
-    # pair dispatch (subtree-aligned clusters grouped into super tiles) and
-    # ops/cluster.py round dispatch (fixed-stride cut, kept for comparison).
-    from wgpu_path_tracing_tpu.ops.cluster import build_clusters
-    from wgpu_path_tracing_tpu.ops.pairs import build_pair_tables
-
-    cluster_tris, cluster_aabb = build_clusters(tri_isect, k=cluster_k)
-    pairs_tris, pairs_super_aabb = build_pair_tables(
-        bvh_aabb[:max(b, 1)], bvh_meta[:max(b, 1)], tri_isect[:t]
-    )
-
-    # Wide-BVH tables for the in-kernel block walk (ops/walk.py) — the
-    # default large-scene intersector when the slabs fit in VMEM. A
-    # pathologically deep tree (degenerate SAH spine beyond the kernel's
-    # DFS stack bound) simply omits the tables; the auto selection then
-    # falls back to the pair dispatch.
-    from wgpu_path_tracing_tpu.accel.bvh8 import (
-        WideBVHDepthError,
-        build_wide_bvh,
-    )
-
-    try:
-        wide = build_wide_bvh(
-            scene.bvh_aabb_min if b else np.zeros((1, 3), np.float32),
-            scene.bvh_aabb_max if b else np.zeros((1, 3), np.float32),
-            bvh_meta[:b] if b else np.zeros((1, 4), np.int32),
-            tri_isect[:t],
-        )
-    except WideBVHDepthError as e:
-        import warnings
-
-        warnings.warn(
-            f"walk tables skipped (pair-dispatch fallback): {e}",
-            stacklevel=2,
-        )
-        wide = None
-
-    # Load-bearing invariant: atlas texels must be bf16-representable f32
-    # (models/assemble.py quantizes at the finalize_scene choke point) —
-    # the in-kernel atlas selects rely on it to use ONE default-precision
-    # MXU dot losslessly (ops/pallas_bounce.py::_select_rows
-    # bf16_exact=True). An atlas that bypassed finalize_scene would
-    # otherwise be silently bf16-truncated per fetch on hardware only.
+    # Invariant: atlas texels are bf16-representable f32
+    # (models/assemble.py quantizes at the finalize_scene choke point; the
+    # goldens pin those texel values). An atlas that bypassed
+    # finalize_scene would render differently from a finalized one.
     import ml_dtypes
 
     a32 = np.asarray(atlas, np.float32)
@@ -570,21 +503,6 @@ def pack_device_scene(scene: SceneArrays, cluster_k: int = 64):
         "bvh_aabb": bvh_aabb,
         "bvh_meta": bvh_meta,
         "bvh_links": bvh_links,
-        "cluster_tris": cluster_tris,
-        "cluster_aabb": cluster_aabb,
-        "pairs_tris": pairs_tris,
-        "pairs_super_aabb": pairs_super_aabb,
-        # walk_meta stays host-side (the kernel reads only the ordered
-        # metas); omitting it saves the SMEM prefetch and the transfer.
-        **(
-            {
-                "walk_order": wide.order,
-                "walk_boxes": wide.boxes,
-                "walk_tris": wide.tris,
-            }
-            if wide is not None
-            else {}
-        ),
         "atlas": np.asarray(atlas, np.float32),
         # Big-atlas fat canvas + map-set match table (one gather serves
         # all four texture slots); keys PRESENT only when the scene

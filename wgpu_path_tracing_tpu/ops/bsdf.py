@@ -1,8 +1,7 @@
 """BSDF evaluation and sampling (device-side, SoA).
 
 Reimplements pt.wgsl's metallic/roughness BSDF with transmission over
-lane-shaped SoA arrays (ops/vec.py) — the same code runs in the plain-XLA
-path and inside Pallas bounce kernels:
+lane-shaped SoA arrays (ops/vec.py):
 
 * GGX distribution / Smith geometry / Fresnel-Schlick — pt.wgsl:316-345
 * cosine-hemisphere sampling — pt.wgsl:299-307 (randomCosineDirection)
@@ -93,9 +92,8 @@ def geometry_smith(n: V3, v: V3, l: V3, roughness):
 
 
 def _pow5(x):
-    """x**5 as a multiply chain — exact, fast on the VPU, and identical
-    between the XLA and Mosaic lowerings (jnp.power would go through
-    exp/log approximations inside Pallas kernels)."""
+    """x**5 as a multiply chain (jnp.power may go through exp/log
+    approximations)."""
     x2 = x * x
     return x2 * x2 * x
 

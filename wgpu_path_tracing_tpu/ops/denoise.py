@@ -1,9 +1,7 @@
 """Edge-avoiding à-trous wavelet denoiser (opt-in extension).
 
-The reference has no denoiser — this is an extension motivated by the
-round-3 floor measurements (BASELINE.md): every traversal and bounce
-kernel sits at its measured hardware floor, so equal-quality wall clock
-on one chip now improves only by needing FEWER RAYS. An edge-avoiding
+The reference has no denoiser — this is an extension for reaching equal
+quality with FEWER RAYS. An edge-avoiding
 à-trous wavelet filter (Dammertz et al. 2010) with the SVGF-style
 variance-normalized luminance weight (Schied et al. 2017) over the
 linear HDR accumulation, guided by primary-hit AOVs (albedo, shading
@@ -72,7 +70,7 @@ def primary_aovs(
     ``lens_samples == 0`` (default): pinhole center rays — sharp guides,
     exactly the debug-view basis (pt_debug.wgsl:305-344).
 
-    ``lens_samples = K > 0`` (round 4, VERDICT r3 item 3): the guides are
+    ``lens_samples = K > 0``: the guides are
     AVERAGED over K jittered thin-lens primary rays drawn with the SAME
     seed schedule the render used (frames 0..K-1 of ``rng_mode``), so
     under a wide aperture they carry the lens blur the accumulation
@@ -269,7 +267,7 @@ def atrous_filter(
 
 @jax.jit
 def variance_blend(raw, filt, strength=1.0, k_cap=1.0):
-    """Per-pixel raw/filtered blend weight (round 5, VERDICT r4 item 7).
+    """Per-pixel raw/filtered blend weight.
 
     The filter carries a ~0.017-RMSE bias floor, so raw accumulation
     overtakes it past ~512 spp — a preview-only denoiser. The

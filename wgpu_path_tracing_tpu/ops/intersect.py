@@ -1,20 +1,24 @@
 """Ray-scene intersection kernels (device-side, vectorized).
 
-Two TPU-native strategies replace the reference's per-thread BVH walk
-(pt.wgsl:248-296 traverseBVH):
+The plain-XLA references, and the selection between them and the GPU
+kernels of ops/pallas_kernels.py (``make_closest_hit``):
 
 1. ``closest_hit_brute`` — dense all-rays x all-triangles Möller-Trumbore,
-   scanned over fixed-size triangle chunks. No gathers, no divergence, pure
-   VPU: for small scenes (the Cornell-class benchmarks) this is faster than
-   any traversal because every lane does identical work on contiguous data.
+   scanned over fixed-size triangle chunks: for small scenes (the
+   Cornell-class benchmarks) every ray does identical work on contiguous
+   data.
 
-2. ``closest_hit_bvh`` — batched traversal: each ray keeps a fixed-depth
-   stack (the reference uses 64 entries, pt.wgsl:249) and one
-   ``lax.while_loop`` steps all rays together, masked. Leaf loops are
-   unrolled to the static build-time leaf size (default 4, bvh.ts:86).
-   Adds ordered t-culling (skip nodes whose AABB entry exceeds the current
-   best hit) and optional any-hit early exit for shadow rays — pure
-   performance wins that cannot change which closest hit is returned.
+2. ``closest_hit_bvh_linked`` — the threaded-BVH walk (hit/miss links,
+   accel/bvh.py::build_links) with one ``lax.while_loop`` stepping all
+   rays together, masked.
+
+3. ``closest_hit_bvh`` — batched traversal with a fixed-depth per-ray
+   stack (the reference uses 64 entries, pt.wgsl:249); the CPU oracle.
+
+The walks unroll leaf loops to the static build-time leaf size (default 4,
+bvh.ts:86) and add ordered t-culling (skip nodes whose AABB entry exceeds
+the current best hit) and optional any-hit early exit for shadow rays —
+performance wins that cannot change which closest hit is returned.
 
 Intersection math mirrors pt.wgsl:123-157 (Möller-Trumbore with
 EPSILON = 1e-6) and pt.wgsl:234-245 (slab AABB test). Triangles are
@@ -242,7 +246,7 @@ def closest_hit_bvh_linked(
     any_hit: bool = False,
     max_steps: int = 4_000_000,
 ):
-    """Stackless threaded-BVH traversal — the TPU-native default.
+    """Stackless threaded-BVH traversal (plain-XLA reference).
 
     Each ray walks the tree through precomputed hit/miss links
     (accel/bvh.py::build_links) in left-first DFS order — the same visit
@@ -305,248 +309,34 @@ def closest_hit_bvh_linked(
     return best_t, best_idx
 
 
-REORDER_POS_BITS = 2  # bucket-reorder key: direction octant (3 bits) +
-# REORDER_POS_BITS Morton bits per origin axis -> 8 * 8**bits buckets.
-# Measured (round 3, 103k Cornell, real bounce-2 rays, one process):
-# plain walk 366.9 ms/call; reordered 205.0 ms at 2 bits (512 buckets,
-# machinery 23.2 ms), 221.9 ms at 1 bit — incoherent rays grouped into
-# blocks with smaller traversal unions. Results were bit-identical on the
-# probe population (same razor-tie caveat as compaction).
-
-REORDER_MIN_NODES = 128  # wide-node count below which the bucket
-# reorder is a net loss (glass_box: 48 nodes, sort cost > union win)
-
-WALK_VMEM_BUDGET_BYTES = 80 * 1024 * 1024  # auto selects the resident
-# walk only while its node+triangle slabs fit comfortably in VMEM
-# alongside the ray block; past it (e.g. 765k tris -> 140.7 MB of
-# tables) the PAGED walk takes over (triangle slabs stay in HBM and are
-# DMA'd per leaf visit, double-buffered and prefetched one iteration
-# ahead — ops/walk.py paged=True). The paged walk's BINDING ceilings are
-# the SMEM order-table bound below (~10.2k nodes ≈ 2.7M tris at the
-# round-4 canonical+permutation encoding; was ~3.8k/1M) and the int16
-# leaf-group-meta bound (32768 groups ≈ 3.3M tris) — they land in the
-# same band. Past them, and for trees too deep for walk tables at all,
-# the entry-sorted pair dispatch takes over (unbounded scene size,
-# measured 0.123 Mrays/s at 765k before paging, 0.081 at 2M).
-
-PAGED_VMEM_BUDGET_BYTES = 48 * 1024 * 1024  # paged-walk ceiling on the
-# VMEM-resident share (canonical walk_boxes rows: 256 B per wide node at
-# width 8 since round 4 — the gate compares walk_boxes bytes / 8). A
-# backstop only: the SMEM order bound (~10.2k nodes) always fires far
-# earlier at production leaf fill; this guards pathological node/leaf
-# ratios.
-
-WALK_SMEM_BUDGET_BYTES = 960 * 1024  # the ordered-meta table rides SMEM
-# (scalar prefetch; 1 MB per core, minus ~4 KB of stack/mask scratch),
-# and Mosaic DOUBLE-BUFFERS prefetched operands (measured: the 765k
-# tree's 2825 wide nodes x 256 B unpacked = 0.72 MB allocates
-# 1,449,984 B = 2x and fails "prefetched SMEM operand > 1 MB"; flat
-# packed tables at half that compile). 2D operands additionally pad each
-# row to 256 B — which is why the paged walk packs into a FLAT table.
-# Effective ceilings (alloc = 2x table): resident walk 512 B/node ->
-# ~1.9k nodes; paged walk 96 B/node (round-4 canonical metas + 24-bit
-# octant permutations, ops/walk.py) -> ~10.2k nodes (~2.7M triangles at
-# the measured ~270 tris/node; the round-3 int16-pair layout was
-# 256 B/node -> ~3.8k nodes).
-
-COMPACT_DIVS = (2, 8, 32, 128)  # geometric tier ladder: pack the alive
-# rays into the smallest n/div lane set that holds them. Measured (round
-# 3, 103k Cornell, 262k lanes at 5% occupancy, one process): full walk
-# 147.8 ms/call vs n/8-compacted 30.5 ms (machinery — nonzero + 2
-# gathers + 2 scatters — is 5.5 ms of that). The deep tiers (n/32,
-# n/128) exist for frames_per_trace-batched calls (1-2M lanes), whose
-# late Russian-roulette bounces run below 1% occupancy yet still filled
-# a quarter of the n/8 tier's blocks.
-COMPACT_TIER_MIN_LANES = 2048  # one walk block; skip tiers smaller than this
-COMPACT_MIN_LANES = 16384  # below this the full call is already cheap
-
-
-def _with_bucket_reorder(inner, root_box):
-    """Counting-sort rays into direction-octant x coarse-Morton-of-origin
-    buckets before a block-walk call, un-permuting the results after.
-
-    A block-synchronous traversal pays for the UNION of its 2048 rays'
-    paths; incoherent bounce rays union to nearly the whole tree. The
-    bucket sort is pure vector work (one-hot cumsum ranks + scatter /
-    gather rows — no argsort): see REORDER_POS_BITS for the measured
-    numbers. ``root_box`` is the scene root AABB row [min3|max3] used to
-    quantize origins."""
-    bits = REORDER_POS_BITS
-    nb = 8 * (8 ** bits)
-
-    def wrapped(ro3, rd3, active=None, t_max=None, any_hit=False):
-        n = ro3.shape[1]
-        bmin = root_box[0:3]
-        bext = jnp.maximum(root_box[3:6] - root_box[0:3], 1e-6)
-        q = (1 << bits) - 1
-        c = [
-            jnp.clip(
-                ((ro3[a] - bmin[a]) / bext[a] * (q + 1)).astype(jnp.int32),
-                0, q,
-            )
-            for a in range(3)
-        ]
-        key = ((rd3[0] < 0).astype(jnp.int32)
-               + 2 * (rd3[1] < 0).astype(jnp.int32)
-               + 4 * (rd3[2] < 0).astype(jnp.int32))
-        for b in range(bits):
-            for a in range(3):
-                key = (key << 1) | ((c[a] >> (bits - 1 - b)) & 1)
-        oh = key[None, :] == jnp.arange(nb, dtype=jnp.int32)[:, None]
-        ranks = jnp.cumsum(oh.astype(jnp.int32), axis=1)
-        counts = ranks[:, -1]
-        base = jnp.concatenate(
-            [jnp.zeros((1,), jnp.int32), jnp.cumsum(counts)[:-1]]
-        )
-        rank_i = jnp.take_along_axis(ranks, key[None, :], axis=0)[0]
-        perm = jnp.take(base, key) + rank_i - 1  # bijection onto [0, n)
-
-        rows = jnp.concatenate([ro3, rd3], axis=0)  # (6, n)
-        srt = jnp.zeros_like(rows).at[:, perm].set(rows)
-        act_s = None
-        if active is not None:
-            act_s = jnp.zeros((n,), bool).at[perm].set(active)
-        tm_s = None
-        if t_max is not None:
-            tm_s = jnp.zeros((n,), t_max.dtype).at[perm].set(t_max)
-        t_s, i_s = inner(srt[0:3], srt[3:6], active=act_s, t_max=tm_s,
-                         any_hit=any_hit)
-        return jnp.take(t_s, perm), jnp.take(i_s, perm)
-
-    return wrapped
-
-
-def _with_tail_compaction(inner, root_box, use_reorder=True):
-    """Wrap a closest-hit so sparse calls traverse a compacted ray set.
-
-    Late bounces run at 1-7% occupancy (Russian roulette + misses), but a
-    block-walk intersector pays per-BLOCK costs: every 2048-lane block with
-    even one alive ray walks its whole block union. Packing the alive rays
-    into the smallest n/div lane set that holds them (COMPACT_DIVS tier
-    ladder) cuts the visited blocks by the occupancy factor. Each branch
-    of the ``lax.cond`` ladder compiles once; the device executes one.
-
-    Winner selection on razor-edge near-ties (two triangles within ~1 ulp
-    of t along a shared edge) is visit-order-dependent in the walk EITHER
-    WAY — measured against brute force on the 103k Cornell, the full walk
-    diverges on 0.11% of random shell rays and the compacted walk on
-    0.05%, both by <= 1 ulp of t; compaction introduces no new error
-    class (the aimed-ray exactness tests stay exact).
-
-    ``reorder`` (a TRACED bool, or None) marks the rays as incoherent
-    (bounce rays — ops/trace.py passes ``bounce_idx > 0``): the
-    compacted tiers then route through _with_bucket_reorder (camera rays
-    never land there — their occupancy is 1.0), and the full branch
-    becomes a ``lax.cond`` between the sorted and plain walks. A traced
-    flag keeps the callers' scan structure — and with it the bit-exact
-    XLA fusion of the default path — unchanged.
-
-    ``use_reorder=False`` (static, per scene) disables the sort entirely:
-    on SMALL trees the machinery (~23 ms at 262k lanes) exceeds the
-    union shrinkage — measured end-to-end on glass_box (48 wide nodes):
-    5.17 -> 4.11 Mrays/s WITH the sort vs without; the 103k Cornell
-    (311 nodes) gains 0.79 -> 1.27."""
-    inner_sorted = (
-        _with_bucket_reorder(inner, root_box) if use_reorder else inner
-    )
-
-    def wrapped(ro3, rd3, active=None, t_max=None, any_hit=False,
-                reorder=None):
-        n = ro3.shape[1]
-        if n < COMPACT_MIN_LANES:
-            return inner(ro3, rd3, active=active, t_max=t_max,
-                         any_hit=any_hit)
-        if active is None:
-            return inner(ro3, rd3, active=active, t_max=t_max,
-                         any_hit=any_hit)
-
-        def compacted(k):
-            def branch(_):
-                idxs = jnp.nonzero(active, size=k, fill_value=n)[0]
-                valid = idxs < n
-                gidx = jnp.where(valid, idxs, 0)
-                ro_k = jnp.take(ro3, gidx, axis=1)
-                rd_k = jnp.take(rd3, gidx, axis=1)
-                tm_k = None if t_max is None else jnp.take(t_max, gidx)
-                t_k, i_k = inner_sorted(ro_k, rd_k, active=valid,
-                                        t_max=tm_k, any_hit=any_hit)
-                # Scatter back; invalid slots land in sacrificial row n.
-                slot = jnp.where(valid, idxs, n)
-                t = jnp.full((n + 1,), INF, t_k.dtype).at[slot].set(
-                    jnp.where(valid, t_k, INF))[:n]
-                i = jnp.full((n + 1,), -1, i_k.dtype).at[slot].set(
-                    jnp.where(valid, i_k, -1))[:n]
-                return t, i
-
-            return branch
-
-        def full(_):
-            if reorder is None or not use_reorder:
-                return inner(ro3, rd3, active=active, t_max=t_max,
-                             any_hit=any_hit)
-            return jax.lax.cond(
-                reorder,
-                lambda __: inner_sorted(ro3, rd3, active=active,
-                                        t_max=t_max, any_hit=any_hit),
-                lambda __: inner(ro3, rd3, active=active, t_max=t_max,
-                                 any_hit=any_hit),
-                None,
-            )
-
-        cnt = jnp.sum(active.astype(jnp.int32))
-        # Geometric tier ladder (COMPACT_DIVS): nested lax.conds checking
-        # the deepest tier first; each tier compiles the inner walk once
-        # at its lane count, the device executes exactly one branch.
-        out = full
-        for div in sorted(set(COMPACT_DIVS)):  # shallowest first
-            k = n // div
-            if k < COMPACT_TIER_MIN_LANES:
-                continue
-            prev = out
-            out = (lambda k=k, prev=prev: lambda _: jax.lax.cond(
-                cnt <= k, compacted(k), prev, None))()
-        return out(None)
-
-    return wrapped
+INTERSECTORS = ("auto", "brute", "bvh", "stack")
 
 
 def make_closest_hit(scene, intersector: str, brute_max_tris: int, leaf_size: int):
     """Pick the intersection strategy for this scene (static decision).
 
-    ``intersector``: "auto" (brute below brute_max_tris, else on TPU the
-    wide-BVH block walk when its VMEM slabs fit — falling back to pair
-    dispatch — and linked-BVH on CPU), or force one of "brute" / "walk" /
-    "phased" (flat single-sync group dispatch, ops/phased.py — measured
-    within ~10% of the walk on incoherent mid-size bounce rays, worse on
-    coherent camera rays; kept selectable for crossover benches) /
-    "pairs" / "cluster" / "bvh" (stackless linked walk) / "stack" (per-ray
-    fixed-stack while_loop — the literal pt.wgsl:248-296 shape; measured
-    ~0.09 Mrays/s on TPU because of the (N, 64) stack scatters, kept as a
-    selectable CPU-side oracle, not a production path). A forced "walk"
-    quietly uses pair dispatch when the scene carries no walk tables
-    (pathologically deep tree, accel/bvh8.py::_check_stack_depth).
+    ``intersector``: "auto" (dense below ``brute_max_tris`` triangles, the
+    threaded-BVH walk above), or force "brute" (dense) / "bvh" (threaded
+    walk) / "stack" (per-ray fixed-stack while_loop — the literal
+    pt.wgsl:248-296 shape, kept as a CPU-side oracle, not a production
+    path). Each strategy has one implementation per backend: the Pallas
+    kernels of ops/pallas_kernels.py on ``gpu``, the plain XLA references
+    of this module elsewhere.
 
     Returns closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False)
-    taking SoA (3, N) origin/direction arrays (cheap row concats at call
-    sites — no (N, 3) transposes on the hot path).
+    taking SoA (3, N) origin/direction arrays, tagged with ``.strategy``
+    ("dense_kernel", "dense_xla", "bvh_kernel", "bvh_xla" or "stack").
     """
+    if intersector not in INTERSECTORS:
+        raise ValueError(
+            f"unknown intersector {intersector!r}; expected one of "
+            f"{INTERSECTORS}")
     num_tris = scene["tri_isect"].shape[0]
-    use_brute = intersector == "brute" or (
-        intersector == "auto" and num_tris <= brute_max_tris
-    )
-    # FORCED large-scene intersectors run on CPU through Pallas interpret
-    # mode — so CPU-mesh shard_map tests and the driver's multichip dryrun
-    # compose the PRODUCTION walk/paged kernels on n>1 meshes, not just
-    # the brute path. "auto" on CPU still picks the linked-BVH walk
-    # (interpret mode is a correctness vehicle, far too slow as a
-    # default); only an explicit intersector= opts in.
-    on_accel = jax.default_backend() not in ("cpu", "gpu")
-    interp = not on_accel
+    on_gpu = jax.default_backend() == "gpu"
 
     if intersector == "stack":
 
-        def closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False,
-                        reorder=False):
+        def closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False):
             return closest_hit_bvh(
                 scene["bvh_aabb"],
                 scene["bvh_meta"],
@@ -559,225 +349,54 @@ def make_closest_hit(scene, intersector: str, brute_max_tris: int, leaf_size: in
                 any_hit=any_hit,
             )
 
-    elif use_brute:
-        # The fused Pallas kernel is ~8-400x faster than the XLA fusion on
-        # TPU (bit-identical results); plain XLA remains for CPU tests.
-        on_tpu = jax.default_backend() not in ("cpu", "gpu")
+        closest_hit.strategy = "stack"
+        return closest_hit
 
-        def closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False,
-                        reorder=False):
+    if intersector == "brute" or (
+        intersector == "auto" and num_tris <= brute_max_tris
+    ):
+
+        def closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False):
             del active, t_max, any_hit
-            if on_tpu:
+            if on_gpu:
                 from wgpu_path_tracing_tpu.ops.pallas_kernels import (
-                    closest_hit_brute_pallas_soa,
+                    closest_hit_dense,
                 )
 
-                return closest_hit_brute_pallas_soa(
-                    scene["tri_isect"], jnp.concatenate([ro3, rd3], axis=0)
-                )
+                return closest_hit_dense(scene["tri_isect"], ro3, rd3)
             return closest_hit_brute(scene["tri_isect"], ro3.T, rd3.T)
 
-    elif intersector == "phased" and "walk_tris" in scene:
-        # Flat single-sync-point group dispatch (ops/phased.py): all
-        # sub-cluster gates in one vector phase, fori-looped MT after.
-        # Exact (idx == walk == brute on every sweep); measured ~equal to
-        # the walk on incoherent glass-class bounce rays, slower on
-        # coherent camera rays (no in-path culling) — selectable for
-        # crossover benches, not the auto default.
-        from wgpu_path_tracing_tpu.ops.phased import closest_hit_phased
+        closest_hit.strategy = "dense_kernel" if on_gpu else "dense_xla"
+        return closest_hit
 
-        def closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False,
-                        reorder=False):
-            return closest_hit_phased(
-                scene["walk_tris"],
-                ro3,
-                rd3,
-                active=active,
-                t_max=t_max,
-                num_tris=num_tris,
-                any_hit=any_hit,
-                interpret=interp,
+    def closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False):
+        # Concatenated inside the traced call, where XLA fuses it: the
+        # renderer builds this closure at scene load just to read
+        # .strategy.
+        bvh_nodes = jnp.concatenate(
+            [scene["bvh_links"], scene["bvh_meta"][:, 2:4]], axis=1
+        )
+        if on_gpu:
+            from wgpu_path_tracing_tpu.ops.pallas_kernels import (
+                closest_hit_bvh_kernel,
             )
 
-    elif intersector == "cluster":
-        # Round-based cluster dispatch (ops/cluster.py) — superseded by the
-        # pair dispatch below, kept selectable for comparison benches.
-        from wgpu_path_tracing_tpu.ops.cluster import closest_hit_cluster
-
-        def closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False,
-                        reorder=False):
-            return closest_hit_cluster(
-                scene["cluster_aabb"],
-                scene["cluster_tris"],
-                ro3,
-                rd3,
-                active=active,
-                t_max=t_max,
-                num_tris=num_tris,
-                any_hit=any_hit,
-                interpret=interp,
-            )
-
-    elif (intersector != "bvh" and on_accel) or intersector in (
-            "walk", "walk_hbm", "pairs"):
-        # Large scenes on TPU. Default: in-kernel wide-BVH block walk
-        # (ops/walk.py) — hierarchy + triangle slabs VMEM-resident, one
-        # grid step per ray block (1.35x the pair dispatch on the 103k-tri
-        # sweep). Falls back to the entry-sorted pair dispatch
-        # (ops/pairs.py) when the slabs exceed the VMEM budget, or when
-        # forced with intersector="pairs".
-        def _nbytes(a):  # works on tracers (shape/dtype only)
-            return a.size * a.dtype.itemsize
-
-        have_walk = "walk_tris" in scene  # absent for pathological trees
-        walk_bytes = (
-            _nbytes(scene["walk_tris"]) + _nbytes(scene["walk_boxes"])
-        ) if have_walk else 1 << 62
-        order_bytes = (
-            _nbytes(scene["walk_order"]) if have_walk else 1 << 62
-        )
-        # Resident walk: node+tri slabs in VMEM, unpacked order in SMEM.
-        resident_fits = (
-            have_walk
-            and walk_bytes <= WALK_VMEM_BUDGET_BYTES
-            and order_bytes * 2 <= WALK_SMEM_BUDGET_BYTES
-        )
-        # Paged walk: tri slabs stay in HBM (per-visit DMA), canonical
-        # octant-0 boxes in VMEM (1/8 of walk_boxes — the push loop
-        # permutes instead of replicating), canonical metas + 24-bit
-        # permutation words in SMEM (12 i32 words/node, alloc = 2x for
-        # Mosaic's double buffering = 96 B/node — ops/walk.py round-4
-        # encoding; was 128 B/node int16-paired, ceiling ~3.8k nodes).
-        # Metas must fit int16: nodes are bounded by the SMEM budget
-        # itself; leaf-group ids by shape.
-        if have_walk:
-            from wgpu_path_tracing_tpu.accel.bvh8 import (
-                SUB,
-                group_rows,
-            )
-
-            n_groups = scene["walk_tris"].shape[0] // group_rows(SUB)
-        else:
-            n_groups = 1 << 30  # no tables: every paged bound fails
-        n_wide_nodes = (
-            scene["walk_order"].shape[0] if have_walk else 1 << 30
-        )
-        paged_fits = (
-            have_walk
-            and n_wide_nodes * 96 <= WALK_SMEM_BUDGET_BYTES
-            and n_wide_nodes < 32768
-            and n_groups < 32768
-            and _nbytes(scene["walk_boxes"]) // 8 <= PAGED_VMEM_BUDGET_BYTES
-        )
-        if intersector == "walk_hbm" and not paged_fits:
-            # Forcing paged mode past its bounds must fail LOUDLY: the
-            # int16 meta packing in ops/walk.py would silently wrap at
-            # >=32768 wide nodes / leaf groups and traverse wrong
-            # geometry (the SMEM alloc failure only catches the order-
-            # table bound, not the shape bounds).
-            raise ValueError(
-                "intersector='walk_hbm' forced but the scene exceeds the "
-                "paged walk's capacity bounds (needs walk tables, <32768 "
-                "wide nodes and <32768 leaf groups for the int16 meta "
-                "packing, the order table inside WALK_SMEM_BUDGET_BYTES, "
-                "and boxes inside PAGED_VMEM_BUDGET_BYTES) — use "
-                "intersector='pairs' for unbounded scenes"
-            )
-        use_paged = (
-            intersector == "walk_hbm"
-            or (intersector == "auto" and paged_fits and not resident_fits)
-        ) and have_walk
-        use_walk = use_paged or (have_walk and (
-            intersector == "walk"
-            or (intersector == "auto" and resident_fits)
-        ))
-        if use_walk:
-            from wgpu_path_tracing_tpu.accel.bvh8 import pops_for_tree
-            from wgpu_path_tracing_tpu.ops.walk import closest_hit_walk
-
-            # Static batching factor (currently 2 for every tree —
-            # accel/bvh8.py numbers). Must match the build-time
-            # stack-depth guarantee, so the rule lives next to it in
-            # bvh8.pops_for_tree.
-            walk_pops = pops_for_tree(scene["walk_order"].shape[0])
-
-            def _walk_inner(ro3, rd3, active=None, t_max=None,
-                            any_hit=False):
-                return closest_hit_walk(
-                    scene["walk_order"],
-                    scene["walk_boxes"],
-                    scene["walk_tris"],
-                    ro3,
-                    rd3,
-                    active=active,
-                    t_max=t_max,
-                    num_tris=num_tris,
-                    any_hit=any_hit,
-                    pops=walk_pops,
-                    paged=use_paged,
-                    interpret=interp,
-                )
-
-        else:
-            from wgpu_path_tracing_tpu.ops.pairs import closest_hit_pairs
-
-            def _walk_inner(ro3, rd3, active=None, t_max=None,
-                            any_hit=False):
-                return closest_hit_pairs(
-                    scene["pairs_super_aabb"],
-                    scene["pairs_tris"],
-                    ro3,
-                    rd3,
-                    active=active,
-                    t_max=t_max,
-                    num_tris=num_tris,
-                    any_hit=any_hit,
-                    interpret=interp,
-                )
-
-        # The bucket reorder pays off only when shrinking block unions
-        # buys more than its ~23 ms machinery — i.e. on big trees (see
-        # _with_tail_compaction). Static per scene via the table shape.
-        big_tree = (
-            scene["walk_order"].shape[0] >= REORDER_MIN_NODES
-            if "walk_tris" in scene else True  # pairs path = huge scenes
-        )
-        closest_hit = _with_tail_compaction(
-            _walk_inner, scene["bvh_aabb"][0], use_reorder=big_tree
-        )
-        closest_hit.strategy = (
-            "walk_hbm" if use_paged else "walk" if use_walk else "pairs"
-        )
-
-    else:
-
-        def closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False,
-                        reorder=False):
-            # Concatenated lazily (inside the traced call, where XLA
-            # fuses it) — renderer.load_scene builds this closure just to
-            # read .strategy, and an eager concat would materialize the
-            # full link table per scene load for nothing.
-            bvh_nodes = jnp.concatenate(
-                [scene["bvh_links"], scene["bvh_meta"][:, 2:4]], axis=1
-            )
-            return closest_hit_bvh_linked(
-                scene["bvh_aabb"],
-                bvh_nodes,
-                scene["tri_isect"],
-                ro3.T,
-                rd3.T,
-                active=active,
-                t_max=t_max,
-                leaf_size=leaf_size,
+            return closest_hit_bvh_kernel(
+                scene["bvh_aabb"], bvh_nodes, scene["tri_isect"], ro3, rd3,
+                active=active, t_max=t_max, leaf_size=leaf_size,
                 any_hit=any_hit,
             )
+        return closest_hit_bvh_linked(
+            scene["bvh_aabb"],
+            bvh_nodes,
+            scene["tri_isect"],
+            ro3.T,
+            rd3.T,
+            active=active,
+            t_max=t_max,
+            leaf_size=leaf_size,
+            any_hit=any_hit,
+        )
 
-    if not hasattr(closest_hit, "strategy"):
-        closest_hit.strategy = (
-            "stack" if intersector == "stack"
-            else "brute" if use_brute
-            else "cluster" if intersector == "cluster"
-            else "phased"
-            if intersector == "phased" and "walk_tris" in scene
-            else "bvh")
+    closest_hit.strategy = "bvh_kernel" if on_gpu else "bvh_xla"
     return closest_hit

@@ -12,9 +12,8 @@ Reimplements sampleLight (pt.wgsl:374-489) over batched lanes:
   solid-angle pdf = (1/N)(1/area)(d²/max(|cosθ|, ε)), intensity carries NO
   distance falloff (pt.wgsl:439-486).
 
-``sample_light_cols`` is generic over the light-row accessor so it runs in
-both the XLA path (one-hot fetched rows) and Pallas bounce kernels (in-VMEM
-select). It does NOT trace the shadow ray itself — it returns the shadow ray
+``sample_light_cols`` is generic over the light-row accessor (columns of
+fetched rows). It does NOT trace the shadow ray itself — it returns the shadow ray
 + per-lane t_max; the caller traverses and applies occlusion (the reference's
 early returns zero pdf and intensity; ``apply_occlusion`` reproduces that).
 RNG draws use masked advancement matching the reference order: the light
@@ -31,7 +30,6 @@ import jax.numpy as jnp
 from wgpu_path_tracing_tpu.models import types as T
 from wgpu_path_tracing_tpu.ops import rng as RNG
 from wgpu_path_tracing_tpu.ops import vec
-from wgpu_path_tracing_tpu.ops.gathers import fetch_rows
 from wgpu_path_tracing_tpu.ops.vec import V3
 
 EPSILON = 1e-6
@@ -170,12 +168,12 @@ def apply_occlusion(sample: LightSample, shadow_t) -> LightSample:
 
 def sample_light(scene, closest_hit, hit_position: V3, state, mask,
                  num_lights: int):
-    """XLA-path wrapper: fetches light rows via one-hot matmul and resolves
+    """XLA-path wrapper: gathers light rows and resolves
     the shadow ray with the scene's intersection function. Returns
     ((intensity V3, wi V3, pdf), new state)."""
 
     def fetch(idx):
-        row = fetch_rows(scene["light_full"], idx)  # (N, LF_COLS)
+        row = scene["light_full"][idx]  # (N, LF_COLS)
         return lambda c: row[:, c]
 
     sample, state = sample_light_from_fetch(

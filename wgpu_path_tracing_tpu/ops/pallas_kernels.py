@@ -1,24 +1,28 @@
-"""Pallas TPU kernels for the hot intersection path.
+"""Pallas kernels (Triton route) for the GPU intersection path.
 
-``closest_hit_brute_pallas`` fuses the dense all-rays x all-triangles
-Möller-Trumbore sweep (the TPU replacement for the reference's per-thread
-BVH walk, pt.wgsl:248-296) into one VMEM-resident kernel:
+Two kernels, each one block of rays per program, written against the same
+f32 Möller-Trumbore (pt.wgsl:123-157, EPSILON = 1e-6) and slab test
+(pt.wgsl:234-245) as the plain references in ops/intersect.py:
 
-* rays are passed SoA as (3, N) so the ray axis sits on the 128-lane minor
-  dimension,
-* triangles stream through VMEM in (BT, 9) blocks; every (triangle, ray)
-  pair is evaluated as (BT, BN) broadcasts on the VPU — zero gathers, zero
-  divergence, no HBM round-trips for the ~12 intermediate pair matrices
-  (XLA's fused version spills them, measured ~7% VPU efficiency; this
-  kernel keeps them in VMEM/vregs),
-* the running (best_t, best_index) lives in the output block, which is
-  revisited across the triangle-block grid axis (index_map constant in j),
-* first-hit-wins tie-breaking matches the reference's strict ``<``
-  (pt.wgsl:275): within a block via a first-index min trick, across blocks
-  via strict comparison in ascending j.
+* ``closest_hit_dense`` — every ray against every triangle. A block of
+  ``DENSE_RAYS`` rays stays in registers while an in-kernel ``fori_loop``
+  streams the triangle table (SoA, ``DENSE_TRIS`` triangles a step)
+  through it; (best_t, best_idx) are written once at the end. Ties keep
+  the FIRST triangle index (the reference's strict ``hit.t < closest.t``,
+  pt.wgsl:275): first-index min within a step, strict ``<`` across steps.
+  Reference: ``closest_hit_brute``.
+* ``closest_hit_bvh_kernel`` — the reference's per-thread traversal
+  (pt.wgsl:248-296) over the threaded binary BVH (accel/bvh.py::
+  build_links): each ray follows its own hit/miss links with node, box and
+  triangle rows gathered from device memory, in the same left-first visit
+  order as ``closest_hit_bvh_linked``. The whole ``while_loop`` runs inside
+  one program per ``BVH_RAYS`` rays, so a block stops when its own rays
+  finish and no loop predicate goes back to the host. Closest hit, and
+  any-hit with ``t_max`` / ``active`` for shadow rays.
 
-Intersection math is the same f32 Möller-Trumbore as ops/intersect.py
-(pt.wgsl:123-157, EPSILON = 1e-6).
+Both take SoA rays: (3, N) origins and directions. ``interpret=True`` runs
+them through the Pallas interpreter (CPU tests); callers pass it
+explicitly, it is never derived from the backend.
 """
 
 from __future__ import annotations
@@ -28,141 +32,213 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
-EPSILON = 1e-6
-BN = 1024  # rays per block (minor / lane axis)
-BT = 256  # triangles per block (major / sublane axis)
+EPSILON = 1e-6  # pt.wgsl:4
 
-
-def _brute_kernel(bt: int):
-  def kernel(ray_ref, tri_ref, t_ref, idx_ref):
-      j = pl.program_id(1)
-
-      @pl.when(j == 0)
-      def _():
-          t_ref[...] = jnp.full_like(t_ref, jnp.inf)
-          idx_ref[...] = jnp.full_like(idx_ref, -1)
-
-      # Rays: (1, BN) rows.
-      ox = ray_ref[0:1, :]
-      oy = ray_ref[1:2, :]
-      oz = ray_ref[2:3, :]
-      dx = ray_ref[3:4, :]
-      dy = ray_ref[4:5, :]
-      dz = ray_ref[5:6, :]
-
-      # Triangles: (BT, 1) columns [v0, e1, e2].
-      v0x = tri_ref[:, 0:1]
-      v0y = tri_ref[:, 1:2]
-      v0z = tri_ref[:, 2:3]
-      e1x = tri_ref[:, 3:4]
-      e1y = tri_ref[:, 4:5]
-      e1z = tri_ref[:, 5:6]
-      e2x = tri_ref[:, 6:7]
-      e2y = tri_ref[:, 7:8]
-      e2z = tri_ref[:, 8:9]
-
-      # h = cross(d, e2) -> (BT, BN)
-      hx = dy * e2z - dz * e2y
-      hy = dz * e2x - dx * e2z
-      hz = dx * e2y - dy * e2x
-      a = e1x * hx + e1y * hy + e1z * hz
-      f = 1.0 / a
-      # s = o - v0
-      sx = ox - v0x
-      sy = oy - v0y
-      sz = oz - v0z
-      u = f * (sx * hx + sy * hy + sz * hz)
-      # q = cross(s, e1)
-      qx = sy * e1z - sz * e1y
-      qy = sz * e1x - sx * e1z
-      qz = sx * e1y - sy * e1x
-      v = f * (dx * qx + dy * qy + dz * qz)
-      t = f * (e2x * qx + e2y * qy + e2z * qz)
-
-      valid = (
-          (jnp.abs(a) >= EPSILON)
-          & (u >= 0.0)
-          & (u <= 1.0)
-          & (v >= 0.0)
-          & (u + v <= 1.0)
-          & (t > EPSILON)
-      )
-      t_masked = jnp.where(valid, t, jnp.inf)
-
-      # Per-ray min over the triangle axis; first index wins ties.
-      min_t = jnp.min(t_masked, axis=0, keepdims=True)  # (1, BN)
-      rows = jax.lax.broadcasted_iota(jnp.int32, t_masked.shape, 0)
-      min_row = jnp.min(
-          jnp.where(t_masked == min_t, rows, 2**30), axis=0, keepdims=True
-      )
-
-      cur_t = t_ref[...]
-      better = min_t < cur_t  # strict: earlier block wins ties
-      t_ref[...] = jnp.where(better, min_t, cur_t)
-      idx_ref[...] = jnp.where(better, j * bt + min_row, idx_ref[...])
+# Block shapes (powers of two, as Triton requires), one ray per thread,
+# tuned on an H100 (tools/kernel_ab.py, PERF.md).
+DENSE_RAYS = 128
+DENSE_TRIS = 16
+DENSE_WARPS = 4
+BVH_RAYS = 32
+BVH_WARPS = 1
 
 
-  return kernel
+def _dot3(x0, x1, x2, y0, y1, y2):
+    # The association of XLA's sequential axis reduction
+    # (ops/intersect.py::_dot): with multiply-add contraction both become
+    # fma(x2, y2, fma(x1, y1, x0 * y0)).
+    return x2 * y2 + (x1 * y1 + x0 * y0)
+
+
+def _mt(ox, oy, oz, dx, dy, dz, v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z):
+    """Component-wise Möller-Trumbore; returns (t, valid)."""
+    hx = dy * e2z - dz * e2y
+    hy = dz * e2x - dx * e2z
+    hz = dx * e2y - dy * e2x
+    a = _dot3(e1x, e1y, e1z, hx, hy, hz)
+    f = 1.0 / a
+    sx = ox - v0x
+    sy = oy - v0y
+    sz = oz - v0z
+    u = f * _dot3(sx, sy, sz, hx, hy, hz)
+    qx = sy * e1z - sz * e1y
+    qy = sz * e1x - sx * e1z
+    qz = sx * e1y - sy * e1x
+    v = f * _dot3(dx, dy, dz, qx, qy, qz)
+    t = f * _dot3(e2x, e2y, e2z, qx, qy, qz)
+    valid = (
+        (jnp.abs(a) >= EPSILON)
+        & (u >= 0.0)
+        & (u <= 1.0)
+        & (v >= 0.0)
+        & (u + v <= 1.0)
+        & (t > EPSILON)
+    )
+    return t, valid
+
+
+def _pad_rays(ro3, rd3, block):
+    rays = jnp.concatenate([ro3, rd3], axis=0).astype(jnp.float32)
+    n = rays.shape[1]
+    pad = (-n) % block
+    if pad:
+        rays = jnp.pad(rays, ((0, 0), (0, pad)))
+    return rays, n
+
+
+def _dense_kernel(bn: int, bt: int, n_steps: int):
+    def kernel(rays_ref, tri_ref, t_ref, idx_ref):
+        lanes = pl.ds(pl.program_id(0) * bn, bn)
+        ray = [rays_ref[c, lanes][None, :] for c in range(6)]
+        rows = jax.lax.broadcasted_iota(jnp.int32, (bt, bn), 0)
+
+        def step(j, carry):
+            best_t, best_idx = carry
+            tris = pl.ds(j * bt, bt)
+            tri = [tri_ref[c, tris][:, None] for c in range(9)]
+            t, valid = _mt(*ray, *tri)
+            t = jnp.where(valid, t, jnp.inf)
+            min_t = jnp.min(t, axis=0)
+            min_row = jnp.min(jnp.where(t == min_t[None, :], rows, bt), axis=0)
+            better = min_t < best_t
+            return (jnp.where(better, min_t, best_t),
+                    jnp.where(better, j * bt + min_row, best_idx))
+
+        best_t, best_idx = jax.lax.fori_loop(
+            0, n_steps, step,
+            (jnp.full((bn,), jnp.inf, jnp.float32),
+             jnp.full((bn,), -1, jnp.int32)))
+        t_ref[lanes] = best_t
+        idx_ref[lanes] = best_idx
+
+    return kernel
 
 
 @functools.partial(jax.jit, static_argnames=("interpret",))
-def closest_hit_brute_pallas_soa(tri_isect, rays, interpret: bool = False):
-    """Dense closest hit. tri_isect: (T, 9); rays: (6, N) SoA [o, d].
+def closest_hit_dense(tri_isect, ro3, rd3, interpret: bool = False):
+    """Dense closest hit. tri_isect: (T, 9) [v0, e1, e2]; ro3, rd3: (3, N).
 
-    Returns (t, idx) with t=inf, idx=-1 for misses. Pads N to BN; the
-    triangle block is the smallest sublane multiple covering the scene
-    (profiling showed padding a 36-triangle Cornell to a fixed 256-row block
-    made this kernel 86% of frame time — 7x wasted VPU work).
-    """
-    n = rays.shape[1]
+    Returns (t, idx) with t = inf, idx = -1 for misses. Padding triangles
+    are all-zero rows (a == 0, never valid)."""
+    rays, n = _pad_rays(ro3, rd3, DENSE_RAYS)
     num_tris = tri_isect.shape[0]
-    bt = min(BT, -(-max(num_tris, 1) // 8) * 8)
-    n_pad = (-n) % BN
+    bt = min(DENSE_TRIS, pl.next_power_of_2(max(num_tris, 1)))
+    tri = tri_isect.astype(jnp.float32).T  # (9, T): one row per component
     t_pad = (-num_tris) % bt
-    if n_pad:
-        rays = jnp.pad(rays, ((0, 0), (0, n_pad)))
-    tri = tri_isect
     if t_pad:
-        tri = jnp.pad(tri, ((0, t_pad), (0, 0)))  # zero tris: a == 0 -> invalid
-
-    np_ = rays.shape[1]
-    tp = tri.shape[0]
-    grid = (np_ // BN, tp // bt)
-
-    t_out, idx_out = pl.pallas_call(
-        _brute_kernel(bt),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((6, BN), lambda i, j: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((bt, 9), lambda i, j: (j, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, BN), lambda i, j: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, BN), lambda i, j: (0, i), memory_space=pltpu.VMEM),
-        ],
+        tri = jnp.pad(tri, ((0, 0), (0, t_pad)))
+    n_pad = rays.shape[1]
+    t, idx = pl.pallas_call(
+        _dense_kernel(DENSE_RAYS, bt, tri.shape[1] // bt),
+        grid=(n_pad // DENSE_RAYS,),
         out_shape=[
-            jax.ShapeDtypeStruct((1, np_), jnp.float32),
-            jax.ShapeDtypeStruct((1, np_), jnp.int32),
+            jax.ShapeDtypeStruct((n_pad,), jnp.float32),
+            jax.ShapeDtypeStruct((n_pad,), jnp.int32),
         ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary"),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=55 * np_ * tp, bytes_accessed=np_ * 32 + tp * 36, transcendentals=0
-        ),
+        compiler_params=pl_triton.CompilerParams(num_warps=DENSE_WARPS),
+        backend="triton",
         interpret=interpret,
+        name="closest_hit_dense",
     )(rays, tri)
-
-    t = t_out[0, :n]
-    idx = idx_out[0, :n]
-    # Padded triangles can never win (a == 0 -> invalid), but clamp for safety.
-    idx = jnp.where(idx >= num_tris, -1, idx)
-    return t, idx
+    return t[:n], idx[:n]
 
 
-def closest_hit_brute_pallas(tri_isect, ro, rd, interpret: bool = False):
-    """(N, 3) AoS convenience wrapper around the SoA kernel."""
-    rays = jnp.concatenate([ro.T, rd.T], axis=0)
-    return closest_hit_brute_pallas_soa(tri_isect, rays, interpret=interpret)
+def _bvh_kernel(bn: int, leaf_size: int, any_hit: bool, max_steps: int):
+    def kernel(rays_ref, node0_ref, tmax_ref, aabb_ref, nodes_ref, tri_ref,
+               t_ref, idx_ref):
+        lanes = pl.ds(pl.program_id(0) * bn, bn)
+        ray = [rays_ref[c, lanes] for c in range(6)]
+        o, d = ray[:3], ray[3:]
+        t_max = tmax_ref[lanes]
+
+        def cond(carry):
+            node, _, _, steps = carry
+            return (jnp.max(node) >= 0) & (steps < max_steps)
+
+        def body(carry):
+            node, best_t, best_idx, steps = carry
+            valid = node >= 0
+            safe = jnp.maximum(node, 0)
+            t_near = t_far = None
+            nan = valid & False
+            for k in range(3):
+                t1 = (aabb_ref[safe, k] - o[k]) / d[k]
+                t2 = (aabb_ref[safe, 3 + k] - o[k]) / d[k]
+                # Triton's min/max drop NaN operands where XLA's propagate
+                # them; a 0/0 slab makes the XLA reference miss the box.
+                nan = nan | (t1 != t1) | (t2 != t2)
+                lo, hi = jnp.minimum(t1, t2), jnp.maximum(t1, t2)
+                t_near = lo if t_near is None else jnp.maximum(t_near, lo)
+                t_far = hi if t_far is None else jnp.minimum(t_far, hi)
+            # Best-t / t_max culling: children's entry is never below the
+            # parent's, so skipping a culled subtree is exact.
+            limit = jnp.minimum(best_t, t_max)
+            box_hit = (valid & ~nan & (t_far >= t_near) & (t_far >= 0.0)
+                       & (t_near <= limit))
+            hit_link = nodes_ref[safe, 0]
+            miss_link = nodes_ref[safe, 1]
+            offset = nodes_ref[safe, 2]
+            count = nodes_ref[safe, 3]
+            do_leaf = box_hit & (count > 0)
+            for i in range(leaf_size):
+                do = do_leaf & (i < count)
+                tri = jnp.where(do, offset + i, 0)
+                t, ok = _mt(*ray, *(tri_ref[tri, c] for c in range(9)))
+                better = do & ok & (t < best_t)
+                best_t = jnp.where(better, t, best_t)
+                best_idx = jnp.where(better, tri, best_idx)
+            nxt = jnp.where(box_hit, hit_link, miss_link)
+            nxt = jnp.where(valid, nxt, -1)
+            if any_hit:
+                nxt = jnp.where(best_t < t_max, -1, nxt)
+            return nxt, best_t, best_idx, steps + 1
+
+        _, best_t, best_idx, _ = jax.lax.while_loop(
+            cond, body,
+            (node0_ref[lanes], jnp.full((bn,), jnp.inf, jnp.float32),
+             jnp.full((bn,), -1, jnp.int32), jnp.int32(0)))
+        t_ref[lanes] = best_t
+        idx_ref[lanes] = best_idx
+
+    return kernel
+
+
+@functools.partial(
+    jax.jit, static_argnames=("leaf_size", "any_hit", "interpret"))
+def closest_hit_bvh_kernel(bvh_aabb, bvh_nodes, tri_isect, ro3, rd3,
+                           active=None, t_max=None, leaf_size: int = 4,
+                           any_hit: bool = False, interpret: bool = False):
+    """Threaded-BVH closest hit / any-hit, one ray per thread.
+
+    bvh_aabb: (B, 6) [min, max]; bvh_nodes: (B, 4) i32 [hit_link,
+    miss_link, triangleOffset, triangleCount] (link -1 ends the walk);
+    tri_isect: (T, 9); ro3, rd3: (3, N); active: (N,) bool; t_max: (N,)
+    upper bound on t (shadow rays). Same contract as
+    ops/intersect.py::closest_hit_bvh_linked."""
+    rays, n = _pad_rays(ro3, rd3, BVH_RAYS)
+    n_pad = rays.shape[1]
+    if active is None:
+        active = jnp.ones((n,), bool)
+    node0 = jnp.pad(jnp.where(active, 0, -1).astype(jnp.int32),
+                    (0, n_pad - n), constant_values=-1)
+    if t_max is None:
+        t_max = jnp.full((n,), jnp.inf, jnp.float32)
+    t_max = jnp.pad(t_max.astype(jnp.float32), (0, n_pad - n))
+    # A threaded walk visits each node at most once.
+    max_steps = bvh_nodes.shape[0] + 1
+    t, idx = pl.pallas_call(
+        _bvh_kernel(BVH_RAYS, leaf_size, any_hit, max_steps),
+        grid=(n_pad // BVH_RAYS,),
+        out_shape=[
+            jax.ShapeDtypeStruct((n_pad,), jnp.float32),
+            jax.ShapeDtypeStruct((n_pad,), jnp.int32),
+        ],
+        compiler_params=pl_triton.CompilerParams(num_warps=BVH_WARPS),
+        backend="triton",
+        interpret=interpret,
+        name="closest_hit_bvh",
+    )(rays, node0, t_max, bvh_aabb.astype(jnp.float32),
+      bvh_nodes.astype(jnp.int32), tri_isect.astype(jnp.float32))
+    return t[:n], idx[:n]

@@ -56,9 +56,8 @@ def _pcg(state: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
 def _u32_to_f32(word: jnp.ndarray) -> jnp.ndarray:
     """Exact uint32 -> float32 (round-to-nearest) via 16-bit halves.
 
-    Mosaic (Pallas TPU) has no u32->f32 convert; hi·65536 and lo are both
-    f32-exact, so the single rounding happens in the add — bit-identical to
-    a direct conversion. Used by both the XLA and Pallas paths.
+    hi·65536 and lo are both f32-exact, so the single rounding happens in
+    the add — bit-identical to a direct conversion.
     """
     hi = (word >> np.uint32(16)).astype(jnp.int32).astype(jnp.float32)
     lo = (word & np.uint32(0xFFFF)).astype(jnp.int32).astype(jnp.float32)
@@ -87,8 +86,7 @@ def rand_int(state: jnp.ndarray, lo: int, hi: int, mask: jnp.ndarray | None = No
     """
     value, new_state = rand(state, mask)
     span = np.float32(hi - lo + 1)
-    # f32 -> i32 truncation (non-negative here) matches WGSL's u32() cast;
-    # i32 keeps the op Mosaic-lowerable inside Pallas kernels.
+    # f32 -> i32 truncation (non-negative here) matches WGSL's u32() cast.
     idx = np.int32(lo) + (value * span).astype(jnp.int32)
     idx = jnp.minimum(idx, np.int32(hi))
     return idx, new_state

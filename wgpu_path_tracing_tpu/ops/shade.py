@@ -7,18 +7,16 @@ returns only (t, triangle index); the winning triangle's denormalized row
 attributes rebuilt — barycentrics recomputed with the identical
 Möller-Trumbore expressions so floats match the reference.
 
-``hit_attributes_from_cols`` is generic over a column accessor so the SAME
-code runs in the plain-XLA path (columns of a fetched (N, 52) row) and
-inside Pallas bounce kernels (rows of an in-VMEM (52, BN) select result).
+``hit_attributes_from_cols`` is generic over a column accessor (columns of
+a fetched (N, 52) row).
 
 Covers pt.wgsl:157-227: barycentric normal/uv interpolation, UV-derivative
 tangent basis, texture-atlas fetches with per-slot fallbacks
 (pt.wgsl:112-120 getTextureColor), PBR attribute assembly (roughness floored
 at 0.04, pt.wgsl:208), and conditional normal mapping (applied only when the
 sampled texel differs from the flat default (0.5, 0.5, 1) — pt.wgsl:216-226).
-The atlas gather path is XLA-only (2D texel gathers); Pallas callers pass
-``atlas=None`` (untextured scenes take fallback values, exactly as rects
-with w == 0 do in the reference).
+Untextured scenes pass ``atlas=None`` and take fallback values, exactly as
+rects with w == 0 do in the reference.
 """
 
 from __future__ import annotations
@@ -29,7 +27,6 @@ import jax.numpy as jnp
 
 from wgpu_path_tracing_tpu.models import types as T
 from wgpu_path_tracing_tpu.ops import vec
-from wgpu_path_tracing_tpu.ops.gathers import fetch_rows
 from wgpu_path_tracing_tpu.ops.vec import V3
 
 
@@ -85,9 +82,8 @@ SLOT_FALLBACKS = ((1.0, 1.0, 1.0, 1.0), (1.0, 1.0, 1.0, 1.0),
 def sample_atlas_fat(fat, fat_rects, get, uv_u, uv_v):
     """All four texture slots in ONE native gather (big-atlas fast path).
 
-    The per-texel gather is latency-bound on TPU (~8-11 ns per fetched row
-    regardless of row width or index coherence, measured round 3), so four
-    per-slot gathers cost ~4x one: pack_device_scene pre-bakes a
+    A row gather costs about the same whatever the row width, so four
+    per-slot gathers cost about four times one: pack_device_scene pre-bakes a
     (FH, FW, 16) "fat" canvas — every distinct material MAP SET gets a
     virtual rect on the componentwise-LCM grid of its mapped slots, each
     texel row carrying the four slots' texels at the same uv (unmapped
@@ -140,10 +136,8 @@ def sample_atlas_fat(fat, fat_rects, get, uv_u, uv_v):
 
 
 def barycentrics_from_cols(get, ro: V3, rd: V3):
-    """Shared exact barycentric/uv expressions (pt.wgsl:128-156): used by
-    Hit construction AND the external texel pre-gather
-    (ops/pallas_bounce.py) so both sides interpolate the SAME uv.
-    Returns (e1, e2, u, v, w, uv_u, uv_v)."""
+    """Exact barycentric/uv expressions (pt.wgsl:128-156) for Hit
+    construction. Returns (e1, e2, u, v, w, uv_u, uv_v)."""
     v0 = V3(get(T.TF_V0), get(T.TF_V0 + 1), get(T.TF_V0 + 2))
     v1 = V3(get(T.TF_V1), get(T.TF_V1 + 1), get(T.TF_V1 + 2))
     v2 = V3(get(T.TF_V2), get(T.TF_V2 + 1), get(T.TF_V2 + 2))
@@ -167,9 +161,8 @@ def hit_attributes_from_cols(get, ro: V3, rd: V3, t, found, atlas=None,
                              slots_used=(True, True, True, True)) -> Hit:
     """Build the Hit from a row-column accessor ``get(col) -> lane array``.
 
-    ``atlas`` is either the (H, W, 4) array (XLA path: native texel
-    gathers) or a CALLABLE ``sampler(rect, u, v, fallback) -> [r, g, b, a]``
-    (Pallas path: in-VMEM one-hot sampling, ops/pallas_bounce.py).
+    ``atlas`` is the (H, W, 4) array (native texel gathers) or the
+    ``("fat", canvas, rects)`` tuple of the fat-atlas mode.
 
     ``slots_used`` is the STATIC (albedo, pbr, emissive, normal) scene-wide
     slot mask from models/types.py::texture_slots_used: a slot no material
@@ -208,13 +201,6 @@ def hit_attributes_from_cols(get, ro: V3, rd: V3, t, found, atlas=None,
             _, fat_arr, fat_rects = atlas
             fat_quads = sample_atlas_fat(fat_arr, fat_rects, get, uv_u, uv_v)
             sample = None
-        elif isinstance(atlas, tuple) and atlas[0] == "fatfn":
-            # In-kernel fat mode (ops/pallas_bounce.py::_make_fat_sampler):
-            # ONE one-hot select covers all four slots; same SLOT order.
-            fat_quads = atlas[1](get, uv_u, uv_v)
-            sample = None
-        elif callable(atlas):
-            sample = atlas
         else:
             import functools
 
@@ -302,11 +288,10 @@ def hit_attributes_from_cols(get, ro: V3, rd: V3, t, found, atlas=None,
 
 def hit_attributes(scene, ro, rd, t, idx, textured: bool | None = None,
                    slots_used=(True, True, True, True)) -> Hit:
-    """XLA-path wrapper: ro/rd (N, 3) arrays; fetches the winner row via the
-    exact one-hot MXU matmul (ops/gathers.py)."""
+    """XLA-path wrapper: ro/rd (N, 3) arrays; gathers the winner row."""
     found = idx >= 0
     safe = jnp.maximum(idx, 0)
-    row = fetch_rows(scene["tri_full"], safe)  # (N, TF_COLS)
+    row = scene["tri_full"][safe]  # (N, TF_COLS)
     if textured is None:
         textured = scene["atlas"].shape[0] > 1 or scene["atlas"].shape[1] > 1
     atlas = scene["atlas"] if textured else None

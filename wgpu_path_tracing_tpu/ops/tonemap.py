@@ -2,7 +2,7 @@
 
 Reimplements blit.wgsl's fragment tonemap chain (blit.wgsl:43-155) as one
 fused elementwise pass over the HDR accumulation buffer (XLA fuses the whole
-chain into a single VPU kernel, so no hand-written Pallas variant is needed):
+chain into one kernel, so no hand-written variant is needed):
 
 * exposureAdjust: color × exp2(EXPOSURE), EXPOSURE = 1.0 (blit.wgsl:43-51),
 * agx: inset matrix -> clamped log2 encode over [-12.47393, 4.026069] ->
@@ -14,13 +14,16 @@ chain into a single VPU kernel, so no hand-written Pallas variant is needed):
 * final gammaCorrect pow(1/2.2) (blit.wgsl:45-47).
 
 WGSL mat3x3f constructors take COLUMN vectors; the matrices below are
-transposed accordingly so ``v @ M.T`` equals the WGSL ``M * v``.
+transposed accordingly so ``v @ M.T`` equals the WGSL ``M * v``. Every
+product runs at ``Precision.HIGHEST`` (``_mul``): a GPU may otherwise take
+f32 matrix products in TF32, and the golden images pin this chain's output.
 
 The unused ACES variant (blit.wgsl:116-131) is provided for completeness.
 """
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -65,6 +68,11 @@ _MAX_EV = 4.026069  # blit.wgsl:75
 _LUMA = np.array([0.2126, 0.7152, 0.0722], np.float32)  # blit.wgsl:103
 
 
+def _mul(v, m):
+    """``v @ m`` in full f32 (no TF32)."""
+    return jnp.matmul(v, jnp.asarray(m), precision=jax.lax.Precision.HIGHEST)
+
+
 def _agx_contrast(x):
     """6th-order sigmoid approximation (blit.wgsl:54-65)."""
     x2 = x * x
@@ -82,7 +90,7 @@ def _agx_contrast(x):
 
 def agx(val):
     """blit.wgsl:67-86."""
-    result = val @ jnp.asarray(_AGX_MAT).T
+    result = _mul(val, _AGX_MAT.T)
     result = jnp.clip(jnp.log2(result), _MIN_EV, _MAX_EV)
     result = (result - _MIN_EV) / (_MAX_EV - _MIN_EV)
     return _agx_contrast(result)
@@ -90,23 +98,23 @@ def agx(val):
 
 def agx_look(val):
     """blit.wgsl:102-114 — default look: slope/power 1, sat 1 (identity)."""
-    luma = val @ jnp.asarray(_LUMA)
+    luma = _mul(val, _LUMA)
     result = val  # pow(val * 1.0, 1.0)
     return luma[..., None] + 1.0 * (result - luma[..., None])
 
 
 def agx_eotf(val):
     """blit.wgsl:88-100."""
-    result = val @ jnp.asarray(_AGX_MAT_INV).T
+    result = _mul(val, _AGX_MAT_INV.T)
     return jnp.power(result, 2.2)
 
 
 def aces_tone_map(hdr):
     """blit.wgsl:116-131 (kept but unused by the default chain)."""
-    v = hdr @ jnp.asarray(_ACES_M1).T
+    v = _mul(hdr, _ACES_M1.T)
     a = v * (v + 0.0245786) - 0.000090537
     b = v * (0.983729 * v + 0.4329510) + 0.238081
-    return jnp.clip((a / b) @ jnp.asarray(_ACES_M2).T, 0.0, 1.0)
+    return jnp.clip(_mul(a / b, _ACES_M2.T), 0.0, 1.0)
 
 
 def tone_mapping(color, exposure: float = EXPOSURE):

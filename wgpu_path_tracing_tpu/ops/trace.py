@@ -1,8 +1,8 @@
 """The wavefront bounce loop (device-side, SoA).
 
 Reimplements trace() (pt.wgsl:638-709) as a fixed-length ``lax.scan`` over
-bounces with masked lanes — the TPU-native replacement for the reference's
-divergent per-thread loop with breaks:
+bounces with masked lanes in place of the reference's divergent per-thread
+loop with breaks:
 
 * miss -> lane dies (background is black, pt.wgsl:646-649 — no environment
   map, kept for parity),
@@ -17,10 +17,7 @@ divergent per-thread loop with breaks:
   (pt.wgsl:699-705).
 
 ``bounce_core`` carries the whole shading stage between the two traversals
-(closest hit in, shadow query out) and is lane-shape generic: the plain XLA
-path feeds it (N,)-shaped SoA; the Pallas bounce megakernel feeds it (1, BN)
-blocks with in-VMEM table accessors — one implementation, two execution
-strategies.
+(closest hit in, shadow query out) on (N,)-shaped SoA lanes.
 
 RNG draws occur in the reference's exact order with masked state
 advancement, so per-lane streams match random.wgsl's sequential semantics.
@@ -40,7 +37,6 @@ from wgpu_path_tracing_tpu.ops import lights as LIGHTS
 from wgpu_path_tracing_tpu.ops import rng as RNG
 from wgpu_path_tracing_tpu.ops import shade as SHADE
 from wgpu_path_tracing_tpu.ops import vec
-from wgpu_path_tracing_tpu.ops.gathers import fetch_rows
 from wgpu_path_tracing_tpu.ops.vec import V3
 
 EPSILON = 1e-6
@@ -216,11 +212,11 @@ def trace(
         env = make_env_sampler(scene["env"], scene["env_params"])
 
     def fetch_tri(idx):
-        row = fetch_rows(scene["tri_full"], idx)
+        row = scene["tri_full"][idx]
         return lambda c: row[:, c]
 
     def fetch_light(idx):
-        row = fetch_rows(scene["light_full"], idx)
+        row = scene["light_full"][idx]
         return lambda c: row[:, c]
 
     zero = jnp.zeros((n,), jnp.float32)
@@ -237,20 +233,14 @@ def trace(
 
     def bounce(carry, bounce_idx):
         st, counters = carry
-        # Camera rays (bounce 0) are tile-coherent and skip the bucket
-        # reorder; scattered later-bounce rays opt in. The flag is a
-        # traced bool so the scan structure (and with it the XLA fusion
-        # and bit-exact accumulation) is unchanged from the plain loop.
-        reorder = bounce_idx > 0
         t, idx = closest_hit(
             vec.stack_rows(st.ro), vec.stack_rows(st.rd), active=st.alive,
-            reorder=reorder,
         )
         counters = counters.at[0].add(jnp.sum(st.alive.astype(jnp.int32)))
         override = None
         if lds0 is not None:
             # Traced gate: only bounce 0 takes the LDS values; the scan
-            # structure is unchanged (same class as the reorder flag).
+            # structure is unchanged.
             override = ((bounce_idx == 0), lds0[0], lds0[1], lds0[2])
         st, shadow = bounce_core(
             st, t, idx, bounce_idx,
@@ -266,7 +256,6 @@ def trace(
                 active=shadow.mask,
                 t_max=shadow.t_max,
                 any_hit=True,
-                reorder=reorder,
             )
             st = resolve_shadow(st, shadow, shadow_t)
         return (st, counters), None

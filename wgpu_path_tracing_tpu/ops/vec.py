@@ -1,11 +1,10 @@
 """SoA vec3 helpers.
 
-TPU vector units operate on (8, 128)-tiled registers; an (N, 3) array wastes
-~98% of each tile on the padded minor dimension. All device math in this
-framework therefore runs structure-of-arrays: a vec3 is a ``V3`` of three
-lane-shaped arrays — either (N,) in the plain-XLA path or (1, BN) blocks
-inside Pallas kernels. The same shading code (ops/bsdf.py, ops/lights.py,
-ops/shade.py, ops/trace.py) runs unchanged in both contexts.
+All device math in this framework runs structure-of-arrays: a vec3 is a
+``V3`` of three lane-shaped (N,) arrays, so every component is a
+contiguous, coalesced row and no op works on a padded (N, 3) minor axis.
+The shading code (ops/bsdf.py, ops/lights.py, ops/shade.py, ops/trace.py)
+is written against it.
 """
 
 from __future__ import annotations

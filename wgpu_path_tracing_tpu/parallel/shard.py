@@ -1,10 +1,11 @@
 """Multi-chip rendering via jax.sharding.Mesh + shard_map.
 
 The reference is single-device (SURVEY.md §2.4: the only parallelism is
-per-pixel SIMT on one GPU). The TPU-native scale-out design:
+per-pixel SIMT on one GPU). The scale-out design:
 
 * a 2D logical mesh ("sample", "row"),
-* the scene is REPLICATED to every chip (it is small relative to HBM; the
+* the scene is REPLICATED to every device (it is small relative to device
+  memory; the
   reference likewise uploads the whole scene to its one device,
   renderer.ts:242-355),
 * the pixel grid is sharded by row blocks along "row" (each chip renders
@@ -15,7 +16,7 @@ per-pixel SIMT on one GPU). The TPU-native scale-out design:
   tiles are otherwise fully independent (no other collectives, matching
   SURVEY.md §2.4's psum-free tile analysis).
 
-All communication is a single psum per chunk riding ICI; there is no
+All communication is a single psum per chunk (NCCL on GPUs); there is no
 host-side gather until the caller fetches the final image.
 """
 
@@ -27,11 +28,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-
-try:  # JAX >= 0.6 exposes shard_map at top level
-    shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
 
 from wgpu_path_tracing_tpu.ops import camera_rays as CAM
 from wgpu_path_tracing_tpu.ops.intersect import make_closest_hit
@@ -81,7 +77,6 @@ def shard_accum(accum, mesh: Mesh):
         "intersector",
         "brute_max_tris",
         "leaf_size",
-        "bounce_kernel",
         "slots_used",
         "n_active",
         "frames_per_trace",
@@ -107,7 +102,6 @@ def render_chunk_sharded(
     intersector: str = "auto",
     brute_max_tris: int = 512,
     leaf_size: int = 4,
-    bounce_kernel: str = "auto",
     slots_used: tuple = (True, True, True, True),
     n_active: int | None = None,
     frames_per_trace: int = 1,
@@ -123,8 +117,7 @@ def render_chunk_sharded(
 
     ``frames_per_trace`` batches F of a shard's local frames into ONE
     trace call per scan step, same rationale and radiance-difference
-    classes as render_chunk (denser walk blocks on the large-scene
-    intersectors — exactly the multi-chip workloads). The effective F is
+    class as render_chunk. The effective F is
     gcd-clamped to divide the local frame count, and drops to 1 on a
     zero-weighted-tail chunk (n_active < n_frames, the final sub-multiple
     only) so per-frame weights and ray counters stay exact.
@@ -147,7 +140,7 @@ def render_chunk_sharded(
     scene_specs = jax.tree.map(lambda _: P(), scene)
 
     @functools.partial(
-        shard_map,
+        jax.shard_map,
         mesh=mesh,
         in_specs=(scene_specs, P(), P("row", None), P()),
         out_specs=(P("row", None), P()),
@@ -166,7 +159,7 @@ def render_chunk_sharded(
         y = y[perm] + r_idx * local_rows  # global rows -> global RNG seeds
         closest_hit = make_closest_hit(scene, intersector, brute_max_tris, leaf_size)
         trace_fn = make_trace_fn(
-            scene, closest_hit, bounce_kernel=bounce_kernel,
+            scene, closest_hit,
             max_bounces=max_bounces, do_mis=do_mis, num_lights=num_lights,
             slots_used=slots_used, rng_mode=rng_mode,
         )

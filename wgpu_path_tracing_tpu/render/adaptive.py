@@ -1,14 +1,12 @@
 """Adaptive sampling (opt-in extension) — spend rays where the noise is.
 
 The reference distributes samples uniformly (1 spp per pixel per frame,
-renderer.ts:415-454) and so does this framework's default path. But the
-round-3 floor measurements (BASELINE.md) pin every kernel at its hardware
-floor — equal-quality wall clock on one chip now improves only by casting
-FEWER RAYS, and uniform sampling wastes most of them: converged pixels
+renderer.ts:415-454) and so does this framework's default path. Uniform
+sampling spends rays evenly where noise is not even: converged pixels
 (directly lit walls) get the same budget as high-variance ones (DoF
 bokeh, glass caustics, penumbrae).
 
-Scheme (all measured claims in BASELINE.md):
+Scheme:
 
 1. **Uniform warmup** through ``render_chunk_m2`` — the same frame
    schedule, seeds, and accumulation arithmetic as the default
@@ -18,7 +16,7 @@ Scheme (all measured claims in BASELINE.md):
    score this replaces was a single χ²₁-distributed draw of the same
    quantity (relative std ≈ √2 ≈ 141% vs √(2/(n0−1)) here), and its
    noise — frozen into the selection for the whole run — was the
-   measured low-spp failure mode (BASELINE.md round-3 A/B table).
+   measured low-spp failure mode.
 2. **Per-pixel error score** in DISPLAY space: the linear σ is pushed
    through the display transform as |T(μ+σ) − T(μ−σ)|/2 summed over
    channels — display space is what quality metrics (and eyes) measure,
@@ -73,8 +71,7 @@ from wgpu_path_tracing_tpu.render.pipeline import make_trace_fn
 LANE_QUANTUM = 2048
 
 # Measured-by-probe knobs (module-level so A/B probes can flip them in
-# one process; production values are the measured winners — see
-# BASELINE.md quality section):
+# one process; production values are the measured winners):
 #   _PRED_RULE: "n" ranks by marginal MSE gain (score/n_i), "sqrt"
 #   equalizes per-pixel error (score/sqrt(n_i)).
 #   _BLUR: 3x3 image-space smoothing of the warmup score.
@@ -87,7 +84,7 @@ _BLUR = True
     static_argnames=(
         "n_frames", "width", "height", "use_dof", "rng_mode", "max_bounces",
         "do_mis", "num_lights", "firefly_clamp", "intersector",
-        "brute_max_tris", "leaf_size", "bounce_kernel", "slots_used",
+        "brute_max_tris", "leaf_size", "slots_used",
     ),
     donate_argnames=("accum", "m2"),
 )
@@ -110,7 +107,6 @@ def render_chunk_m2(
     intersector: str,
     brute_max_tris: int,
     leaf_size: int,
-    bounce_kernel: str = "auto",
     slots_used: tuple = (True, True, True, True),
 ):
     """Warmup variant of render/pipeline.py::render_chunk that ALSO folds
@@ -131,7 +127,7 @@ def render_chunk_m2(
     closest_hit = make_closest_hit(scene, intersector, brute_max_tris,
                                    leaf_size)
     trace_fn = make_trace_fn(
-        scene, closest_hit, bounce_kernel=bounce_kernel,
+        scene, closest_hit,
         max_bounces=max_bounces, do_mis=do_mis, num_lights=num_lights,
         slots_used=slots_used, rng_mode=rng_mode,
     )
@@ -163,7 +159,7 @@ def render_chunk_m2(
     static_argnames=(
         "n_frames", "use_dof", "rng_mode", "max_bounces", "do_mis",
         "num_lights", "firefly_clamp", "intersector", "brute_max_tris",
-        "leaf_size", "bounce_kernel", "slots_used",
+        "leaf_size", "slots_used",
     ),
     donate_argnames=("extra_sum", "extra_sum2", "extra_count"),
 )
@@ -188,7 +184,6 @@ def render_chunk_subset(
     intersector: str,
     brute_max_tris: int,
     leaf_size: int,
-    bounce_kernel: str = "auto",
     slots_used: tuple = (True, True, True, True),
 ):
     """``n_frames`` one-sample rounds for the K pixels in (x, y), each
@@ -200,7 +195,7 @@ def render_chunk_subset(
     closest_hit = make_closest_hit(scene, intersector, brute_max_tris,
                                    leaf_size)
     trace_fn = make_trace_fn(
-        scene, closest_hit, bounce_kernel=bounce_kernel,
+        scene, closest_hit,
         max_bounces=max_bounces, do_mis=do_mis, num_lights=num_lights,
         slots_used=slots_used, rng_mode=rng_mode,
     )
@@ -308,7 +303,6 @@ def render_adaptive(
         intersector=cfg.intersector,
         brute_max_tris=cfg.brute_force_max_tris,
         leaf_size=cfg.max_leaf_size,
-        bounce_kernel=cfg.bounce_kernel,
         slots_used=getattr(renderer, "_slots_used", (True, True, True, True)),
     )
 

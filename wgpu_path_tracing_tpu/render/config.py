@@ -13,18 +13,19 @@ to a real config object:
 * ``max_leaf_size`` / ``num_bins`` — bvh.ts:42-45 (BuildOptions defaults 4 / 12)
 * ``max_frames`` — renderer.ts:16 (MAX_FRAMES = -1, unlimited)
 
-TPU-specific knobs (no reference equivalent):
+Execution knobs (no reference equivalent):
 
 * ``rng`` — "reference" reproduces random.wgsl's per-pixel PCG stream
   including its conditional draw schedule; "hash" is a statistically stronger
   counter-based mode (decorrelated across draws) for production renders;
   "stratified" additionally draws PRIMARY-ray decisions (pixel jitter, lens
   disc) from a per-pixel-rotated R2 low-discrepancy sequence — measurably
-  lower error at equal spp on AA edges and DoF blur (numbers in
-  BASELINE.md), bounce decisions unchanged ("hash" stream).
-* ``intersector`` — "auto" picks dense all-rays×all-triangles for small
-  scenes (VPU-optimal, zero gathers) and the in-kernel wide-BVH block walk
-  (ops/walk.py) otherwise, with pair dispatch as the out-of-VMEM fallback.
+  lower error at equal spp on AA edges and DoF blur, bounce decisions
+  unchanged ("hash" stream).
+* ``intersector`` — "auto" picks dense all-rays×all-triangles for scenes
+  of at most ``brute_force_max_tris`` triangles and the threaded-BVH walk
+  otherwise (ops/intersect.py::make_closest_hit); "brute" / "bvh" force
+  one, "stack" is the CPU oracle.
 * ``frames_per_chunk`` — samples accumulated per jit dispatch (scan length).
 """
 
@@ -32,6 +33,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
+
+from wgpu_path_tracing_tpu.ops.intersect import INTERSECTORS
 
 
 @dataclasses.dataclass
@@ -61,17 +64,15 @@ class RenderConfig:
     move_speed: float = 2.0
     rotate_speed: float = math.pi / 18
 
-    # TPU execution
+    # Execution
     rng: str = "reference"  # "reference" | "hash" | "stratified"
-    intersector: str = "auto"  # "auto"|"brute"|"walk"|"walk_hbm"|"phased"|"pairs"|"bvh"|"cluster"|"stack"
-    bounce_kernel: str = "auto"  # "auto" | "pallas" | "xla"
-    brute_force_max_tris: int = 4096  # "auto" threshold (Pallas dense wins up to here)
+    intersector: str = "auto"  # "auto" | "brute" | "bvh" | "stack"
+    # "auto" dense/BVH crossover, measured end to end on an H100 (PERF.md).
+    brute_force_max_tris: int = 384
     frames_per_chunk: int = 16
     # Frames whose rays are batched into ONE trace call per scan step
     # (pipeline.render_chunk): >1 packs F x width*height lanes per
-    # large-scene walk dispatch — denser sort buckets for bounce rays,
-    # fuller compacted tail blocks. Accumulation stays per-frame-ordered
-    # (bit-identical to 1 except the documented razor-tie class). The
+    # intersection call. Accumulation stays per-frame-ordered. The
     # renderer clamps it per chunk with gcd so any spp works.
     frames_per_trace: int = 1
     dtype: str = "float32"
@@ -89,11 +90,10 @@ class RenderConfig:
     def validate(self) -> "RenderConfig":
         assert self.width > 0 and self.height > 0
         assert self.rng in ("reference", "hash", "stratified")
-        assert self.intersector in (
-            "auto", "brute", "walk", "walk_hbm", "phased", "pairs", "bvh",
-            "cluster", "stack"
-        )
-        assert self.bounce_kernel in ("auto", "pallas", "xla")
+        if self.intersector not in INTERSECTORS:
+            raise ValueError(
+                f"unknown intersector {self.intersector!r}; expected one "
+                f"of {INTERSECTORS}")
         assert self.mode in ("pt", "bvh_depth", "normal")
         assert self.frames_per_trace >= 1
         return self

@@ -5,7 +5,7 @@ Equivalent of the reference's per-frame dispatch (renderer.ts:415-454): each
 (pt.wgsl:753-761: output = mix(prev, color, 1/(frameIndex+1)) — at frame 0
 the mix weight is 1, which IS the reference's overwrite branch).
 
-TPU-natively, ``n_frames`` samples are folded into one jit dispatch via
+``n_frames`` samples are folded into one jit dispatch via
 ``lax.scan`` with the accumulation buffer donated, so the device never syncs
 with the host between samples. Ray counters ride along for Mrays/s metrics.
 """
@@ -30,66 +30,21 @@ def camera_device(cam_pytree: dict, width: int, height: int) -> dict:
     return cam
 
 
-def make_trace_fn(scene, closest_hit, *, bounce_kernel: str, max_bounces: int,
-                  do_mis: bool, num_lights: int,
+def make_trace_fn(scene, closest_hit, *, max_bounces: int, do_mis: bool,
+                  num_lights: int,
                   slots_used: tuple = (True, True, True, True),
                   rng_mode: str = "reference"):
-    """Build the bounce-loop callable, picking the implementation: the Pallas
-    megakernel runs the same bounce_core with VMEM-resident tables (TPU,
-    untextured, VMEM-sized scenes); otherwise the plain XLA path. Shared by
-    the single-chip pipeline and the shard_map path so both make the same
-    static choice."""
+    """Build the bounce-loop callable (ops/trace.py). Shared by the
+    single-device pipeline and the shard_map path."""
     # NEE against zero lights is pure overhead (and the padded zero light
     # row must never be sampled); skip the shadow pass entirely.
     do_mis = bool(do_mis) and num_lights > 0
 
-    # Environment lighting (extension) currently runs on the XLA bounce
-    # only; a scene with a real env map defers the Pallas megakernel.
-    has_env = "env" in scene and (
-        scene["env"].shape[0] > 1 or scene["env"].shape[1] > 1
-    )
-    if bounce_kernel == "pallas" and has_env:
-        import warnings
-
-        warnings.warn(
-            "bounce_kernel='pallas' overridden to XLA: environment "
-            "lighting runs on the XLA bounce path only",
-            stacklevel=2,
-        )
-    use_pallas = bounce_kernel == "pallas" and not has_env
-    if bounce_kernel == "auto":
-        from wgpu_path_tracing_tpu.ops.pallas_bounce import MAX_VMEM_TRIS
-
-        # No atlas-size condition: big atlases run EXTERNAL mode (XLA HBM
-        # texel gather feeding the kernel) — ops/pallas_bounce.py.
-        use_pallas = (
-            jax.default_backend() not in ("cpu", "gpu")
-            and not has_env
-            and scene["tri_full"].shape[0] <= MAX_VMEM_TRIS
-        )
-
-    # Forcing bounce_kernel="pallas" on CPU runs the megakernel through
-    # Pallas interpret mode — the CPU-mesh composition vehicle (so shard_map
-    # tests and the multichip dryrun exercise the PRODUCTION bounce kernel,
-    # not just its XLA twin). "auto" never does this: interpret is a
-    # correctness path, not a performance one.
-    interp = use_pallas and jax.default_backend() in ("cpu", "gpu")
-
     # Opt-in bounce-0 low-discrepancy extension (rng="stratified" +
-    # CAM.TRACE_BOUNCE0_LDS): measured a WIN on both bench scene classes
-    # (BASELINE.md round-4 table), so the override is plumbed into the
-    # Pallas megakernel too (identical semantics — shared bounce_core).
+    # CAM.TRACE_BOUNCE0_LDS).
     lds_active = rng_mode == "stratified" and CAM.TRACE_BOUNCE0_LDS
 
     def trace_fn(ro, rd, state, lds0=None):
-        if use_pallas:
-            from wgpu_path_tracing_tpu.ops.pallas_bounce import trace_pallas
-
-            return trace_pallas(
-                scene, closest_hit, ro, rd, state,
-                max_bounces=max_bounces, do_mis=do_mis, num_lights=num_lights,
-                slots_used=slots_used, interpret=interp, lds0=lds0,
-            )
         return TRACE.trace(
             scene, closest_hit, ro, rd, state,
             max_bounces=max_bounces, do_mis=do_mis, num_lights=num_lights,
@@ -116,7 +71,6 @@ def make_trace_fn(scene, closest_hit, *, bounce_kernel: str, max_bounces: int,
         "intersector",
         "brute_max_tris",
         "leaf_size",
-        "bounce_kernel",
         "slots_used",
         "frames_per_trace",
     ),
@@ -141,7 +95,6 @@ def render_chunk(
     intersector: str,
     brute_max_tris: int,
     leaf_size: int,
-    bounce_kernel: str = "auto",
     slots_used: tuple = (True, True, True, True),
     frames_per_trace: int = 1,
 ):
@@ -155,18 +108,11 @@ def render_chunk(
     ``frames_per_trace`` (F > 1, must divide n_frames) batches F frames'
     rays into ONE trace call of F*N lanes per scan step. The RNG draw
     schedule and the per-frame accumulation ORDER are identical to F=1;
-    radiance differs only by (a) FMA-placement ulps — the traced shape
-    changes, so XLA fuses differently (the same class the interpret-mode
-    parity tests tolerate) — and (b) the documented razor-tie class in
-    the blocked large-scene intersectors (winner among <=1-ulp t ties
-    can depend on block composition; same class as occupancy compaction
-    / bucket reorder, ops/intersect.py). Default F=1 keeps the parity
-    path untouched. The wins are amortized per-call fixed cost and,
-    mainly, DENSER ray blocks for the large-scene walk: bounce rays from
-    F frames sort into the same direction/Morton buckets, and
-    low-occupancy tail bounces pack F x more alive rays per compacted
-    block. The reference fixes 1 spp per dispatch (renderer.ts:415-454);
-    this knob exists because TPU dispatches want big, batched work."""
+    radiance differs only by FMA-placement ulps (the traced shape
+    changes, so XLA fuses differently). Default F=1 keeps the parity path
+    untouched. The win is amortized per-call fixed cost: wider
+    intersection calls. The reference fixes 1 spp per dispatch
+    (renderer.ts:415-454)."""
     from wgpu_path_tracing_tpu.utils.tiling import tile_permutation
 
     x, y = CAM.pixel_grid(width, height, row_offset)
@@ -175,7 +121,7 @@ def render_chunk(
     y = y[perm]
     closest_hit = make_closest_hit(scene, intersector, brute_max_tris, leaf_size)
     trace_fn = make_trace_fn(
-        scene, closest_hit, bounce_kernel=bounce_kernel,
+        scene, closest_hit,
         max_bounces=max_bounces, do_mis=do_mis, num_lights=num_lights,
         slots_used=slots_used, rng_mode=rng_mode,
     )

@@ -1,7 +1,7 @@
 """Image output and comparison utilities.
 
-The reference displays through a canvas blit (blit.wgsl); headless on TPU we
-write PNGs. The accumulation buffer's row 0 is the BOTTOM of the view (see
+The reference displays through a canvas blit (blit.wgsl); headless, we write
+PNGs (a stdlib zlib/struct codec, no imaging library needed). The accumulation buffer's row 0 is the BOTTOM of the view (see
 ops/camera_rays.py and blit.wgsl:149-151's y-flip), so PNG writing flips
 vertically to match what the reference shows on screen (and its goldens under
 docs/img/).
@@ -9,7 +9,12 @@ docs/img/).
 
 from __future__ import annotations
 
+import struct
+import zlib
+
 import numpy as np
+
+_PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 
 
 def buffer_to_srgb(accum: np.ndarray, width: int, height: int, exposure: float = 1.0):
@@ -24,19 +29,104 @@ def buffer_to_srgb(accum: np.ndarray, width: int, height: int, exposure: float =
     return img[::-1]  # buffer row 0 is the bottom of the view
 
 
+def encode_png(rgb: np.ndarray) -> bytes:
+    """(H, W, 3) or (H, W, 4) uint8, top row first -> PNG bytes (8-bit,
+    filter type 0 on every row)."""
+    rgb = np.ascontiguousarray(rgb, np.uint8)
+    h, w, c = rgb.shape
+    color_type = {3: 2, 4: 6}[c]
+    raw = np.zeros((h, 1 + w * c), np.uint8)
+    raw[:, 1:] = rgb.reshape(h, w * c)
+
+    def chunk(tag: bytes, payload: bytes) -> bytes:
+        return (struct.pack(">I", len(payload)) + tag + payload
+                + struct.pack(">I", zlib.crc32(tag + payload)))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)
+    return (_PNG_MAGIC + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + chunk(b"IEND", b""))
+
+
+def _unfilter(ftype: int, line: np.ndarray, prev: np.ndarray, bpp: int):
+    """Reverse one PNG scanline filter (RFC 2083 §6) in place on ``line``."""
+    if ftype == 0:
+        return line
+    if ftype == 2:
+        return (line + prev).astype(np.uint8)
+    if ftype == 1:  # Sub: running sum per channel, mod 256
+        px = line.reshape(-1, bpp).astype(np.int64)
+        return (np.cumsum(px, axis=0) % 256).astype(np.uint8).reshape(-1)
+    out = line.astype(np.int64)
+    up = prev.astype(np.int64)
+    for i in range(out.size):
+        left = out[i - bpp] if i >= bpp else 0
+        if ftype == 3:
+            out[i] = (out[i] + (left + up[i]) // 2) % 256
+        elif ftype == 4:
+            ul = up[i - bpp] if i >= bpp else 0
+            p = left + up[i] - ul
+            pa, pb, pc = abs(p - left), abs(p - up[i]), abs(p - ul)
+            pred = left if pa <= pb and pa <= pc else (up[i] if pb <= pc else ul)
+            out[i] = (out[i] + pred) % 256
+        else:
+            raise ValueError(f"bad PNG filter type {ftype}")
+    return out.astype(np.uint8)
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> (H, W, C) uint8 (C = 1, 2, 3 or 4 as stored).
+
+    Supports the non-interlaced 8-bit gray / gray+alpha / RGB / RGBA
+    files this package and common tools write."""
+    if not data.startswith(_PNG_MAGIC):
+        raise ValueError("not a PNG file (bad magic)")
+    pos, idat, hdr = 8, [], None
+    while pos < len(data):
+        (length,) = struct.unpack_from(">I", data, pos)
+        tag = data[pos + 4 : pos + 8]
+        payload = data[pos + 8 : pos + 8 + length]
+        pos += 12 + length
+        if tag == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", payload)
+        elif tag == b"IDAT":
+            idat.append(payload)
+        elif tag == b"IEND":
+            break
+    if hdr is None:
+        raise ValueError("PNG without IHDR")
+    w, h, depth, color_type, _, _, interlace = hdr
+    channels = {0: 1, 4: 2, 2: 3, 6: 4}.get(color_type)
+    if depth != 8 or channels is None or interlace:
+        raise ValueError(
+            f"unsupported PNG (bit depth {depth}, color type {color_type}, "
+            f"interlace {interlace}): only non-interlaced 8-bit gray, "
+            "gray+alpha, RGB and RGBA are read")
+    stride = w * channels
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    raw = raw.reshape(h, 1 + stride)
+    out = np.empty((h, stride), np.uint8)
+    prev = np.zeros(stride, np.uint8)
+    for y in range(h):
+        prev = out[y] = _unfilter(int(raw[y, 0]), raw[y, 1:], prev, channels)
+    return out.reshape(h, w, channels)
+
+
 def write_png(path: str, img01: np.ndarray) -> None:
     """img01: (H, W, 3) float in [0, 1], top row first."""
-    from PIL import Image
-
     data = (np.clip(img01, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
-    Image.fromarray(data, "RGB").save(path)
+    with open(path, "wb") as f:
+        f.write(encode_png(data))
 
 
 def read_png(path: str) -> np.ndarray:
-    from PIL import Image
-
-    with Image.open(path) as im:
-        return np.asarray(im.convert("RGB"), np.float32) / 255.0
+    """PNG file -> (H, W, 3) float32 in [0, 1] (gray expanded, alpha
+    dropped)."""
+    with open(path, "rb") as f:
+        px = decode_png(f.read())
+    if px.shape[2] <= 2:
+        px = np.repeat(px[..., :1], 3, axis=2)
+    return px[..., :3].astype(np.float32) / 255.0
 
 
 def rmse(a: np.ndarray, b: np.ndarray) -> float:

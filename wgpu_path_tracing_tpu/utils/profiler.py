@@ -1,6 +1,6 @@
 """Profiling / observability.
 
-TPU equivalent of the reference's two-tier instrumentation (SURVEY.md §5):
+Equivalent of the reference's two-tier instrumentation (SURVEY.md §5):
 
 * ``PassProfiler`` replaces WebGPUProfiler (src/utils/profiler.ts:45-140):
   named per-pass wall timings via ``block_until_ready`` fences, exposed as
